@@ -3,30 +3,44 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA flash-attention forward from ``diffusion_classifier_tpu_torch/
-csrc/`` and drives the port's main path — CheXpert DiT-b4 ELBO
-classification through ``experiments/chexpert-dit/inference_torch.py`` — at
-full width (384 = 6 × 64, 12 layers, 256 px → Haar DWT 128 × 128 × 12 →
-1024 tokens) with seeded random weights and synthetic data. Phases:
+Builds the CUDA flash-attention forward and backward from
+``diffusion_classifier_tpu_torch/csrc/`` (one ``nvcc`` each, started
+together) and drives the port's two main paths at full width (384 = 6 × 64,
+12 layers, 256 px → Haar DWT 128 × 128 × 12 → 1024 tokens) with seeded
+random weights and synthetic data: CheXpert DiT-b4 ELBO classification
+through ``experiments/chexpert-dit/inference_torch.py``, and DiT-b4 training
+through ``experiments/chexpert-dit/train_torch.py``. Phases:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: compiles the kernel, prints the seconds;
-3. kernel vs its plain PyTorch version on the card at the main path's shapes,
-   strided q/k/v thirds and a ragged sequence included, with timings;
+2. build: compiles both kernels, prints the seconds and ptxas' register use;
+3. forward kernel vs its plain PyTorch version on the card at the main
+   path's shapes, strided q/k/v thirds and a ragged sequence included,
+   with timings (kernel, plain, and SDPA as a yardstick) and the bound;
 4. the full-width DiT-b4 forward with the kernel vs with the plain
    attention on the same weights: relative L2 ≤ 1e-2, 12 launches;
-5. the entry point: a seeded checkpoint, ``inference_torch.main()`` with
-   launch counts, then classify throughput at B=16 and latency at B=1.
+5. the classify entry point: a seeded checkpoint, ``inference_torch.main()``
+   with launch counts, then classify throughput at B=16 and latency at B=1;
+6. backward kernel vs its plain version at the same kind of shapes, with
+   timings (kernel, plain, SDPA's backward) and the bound;
+7. full-width DiT-b4 gradients at B=16, kernels vs plain attention on the
+   same weights and draws: relative L2 ≤ 2e-2, 12 + 12 launches;
+8. the training entry point: ``train_torch.main()`` for one epoch (16 steps
+   at B=16) with its eval, launch counts, a finite loss at every step, a
+   checkpoint that ``inference_torch.main()`` reads back; then the median
+   step time, images/s and one profiler trace of a warm step.
 
-Any failed check raises and exits non-zero. The second-to-last line is the
-kernels' JSON record; the last line is
+Each path's launch counts are set to 0 just before it runs and read just
+after. Any failed check raises and exits non-zero. The second-to-last line
+is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Imports nothing of JAX.
+Imports nothing of JAX, and nothing of the JAX package.
 """
 
 import importlib.util
 import json
+import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -35,11 +49,32 @@ import tempfile
 import time
 
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "diffusion_classifier_tpu_torch/csrc/flash_attn_fwd.cu"
-TPU_KERNEL = "diffusion_classifier_tpu/ops/flash_attention.py:123"
-DIT_SHAPE = (16, 1024, 6, 64)  # classify megabatch 16 x 1 class per chunk
+KERNELS = {
+    "flash_attn_fwd": ("diffusion_classifier_tpu_torch/csrc/flash_attn_fwd.cu",
+                       "diffusion_classifier_tpu/ops/flash_attention.py:123"),
+    "flash_attn_bwd": ("diffusion_classifier_tpu_torch/csrc/flash_attn_bwd.cu",
+                       "diffusion_classifier_tpu/ops/flash_attention.py:304"),
+}
+# the classify megabatch (16 x 1 class per chunk) and the train batch
+DIT_SHAPE = (16, 1024, 6, 64)
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 without
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+KERNEL_CASES = [
+    (DIT_SHAPE, torch.bfloat16),
+    ((2, 1024, 6, 64), torch.float32),
+    ((1, 1024, 3, 128), torch.bfloat16),
+    ((2, 200, 2, 32), torch.float32),  # ragged last tiles
+]
+BWD_CASES = [
+    (DIT_SHAPE, torch.bfloat16),
+    ((2, 1024, 6, 64), torch.float32),
+    ((1, 512, 3, 128), torch.bfloat16),
+    ((2, 200, 2, 32), torch.float32),  # ragged last tiles
+]
 # fp32: the JAX suite's flash tolerance (tests/test_ops.py:66-68); bf16: one
 # bf16 ulp of an O(1) output
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-3), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -56,6 +91,12 @@ INFERENCE_CONFIG = {
     "evaluation_per_stage": [4],
     "evaluation_batches": 1,
 }
+# one epoch of the synthetic set's 256 train images: 16 steps at B=16; the
+# loss goes to track.jsonl at every step
+TRAINING_CONFIG = dict(
+    INFERENCE_CONFIG, num_epochs=1, log_every_steps=1, use_comet=True,
+    experiment_dir="chexpert-dit-train",
+)
 
 
 def check(cond, msg):
@@ -78,6 +119,18 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def bound(flops, nbytes, dtype):
+    """``(bound_ms, bound_by)``: the larger of the operations' and the bytes' least time."""
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def reset_counts(fa):
+    fa.FLASH_FWD.launches = 0
+    fa.FLASH_BWD.launches = 0
+
+
 def strided_qkv(shape, dtype, gen):
     """q, k, v as the three contiguous thirds of one ``[B, S, 3·H·D]`` tensor (the DiT's qkv)."""
     b, s, h, d = shape
@@ -98,23 +151,30 @@ def phase_device():
 
 
 def phase_build(fa):
-    seconds = fa.FLASH_FWD.build()
-    print(f"[2 build] flash_attn_fwd built and loaded in {seconds:.2f} s")
-    for line in fa.FLASH_FWD.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[2 build]   {line.strip()}")
+    seconds = fa.build_all(fa.FLASH_FWD, fa.FLASH_BWD)
+    print(f"[2 build] flash_attn_fwd and flash_attn_bwd built and loaded in {seconds:.2f} s")
+    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD):
+        # ptxas -v: one "Compiling entry function '<mangled name>'" line, then
+        # its spills, then its registers
+        entry = spill = None
+        for line in kernel.build_log.splitlines():
+            if "Compiling entry" in line:
+                match = re.search(r"(flash_fwd|delta|dkdv|dq)_kernelI(13__nv_bfloat16|f)Li(\d+)E", line)
+                name, dtype, dim = match.groups() if match else (line.strip(), "?", "?")
+                entry = f"{name} {'bf16' if dtype != 'f' else 'f32'} D={dim}"
+            elif "spill stores" in line:
+                spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+            elif "Used" in line and "registers" in line and entry:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                print(f"[2 build]   {entry}: {regs} registers, {spill} bytes spilled")
+                entry = None
     return seconds
 
 
 def phase_kernel(fa):
     gen = torch.Generator(device="cuda").manual_seed(0)
     record = {}
-    for shape, dtype in [
-        (DIT_SHAPE, torch.bfloat16),
-        ((2, 1024, 6, 64), torch.float32),
-        ((1, 1024, 3, 128), torch.bfloat16),
-        ((2, 200, 2, 32), torch.float32),  # ragged last tiles
-    ]:
+    for shape, dtype in KERNEL_CASES:
         q, k, v = strided_qkv(shape, dtype, gen)
         got = fa.FLASH_FWD(q, k, v)
         torch.cuda.synchronize()
@@ -122,13 +182,56 @@ def phase_kernel(fa):
         check(got.dtype == dtype and got.shape == q.shape, f"output {got.dtype} {got.shape}")
         check(bool(torch.isfinite(got).all()), f"non-finite kernel output at {shape}")
         err = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got, want, **TOL[dtype])
         print(f"[3 kernel] {shape} {str(dtype)[6:]} strided q/k/v: max |kernel - plain| = {err:.3e} (atol {TOL[dtype]['atol']}, rtol {TOL[dtype]['rtol']})")
+        torch.testing.assert_close(got, want, **TOL[dtype])
         if shape == DIT_SHAPE:
+            b, s, h, d = shape
+            qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             record["max_abs_err"] = err
             record["plain_ms"] = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
             record["ms"] = cuda_ms(lambda: fa.FLASH_FWD(q, k, v))
-            print(f"[3 kernel] {shape} bf16 median: kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms")
+            lse_ms = cuda_ms(lambda: fa.FLASH_FWD(q, k, v, lse=True))
+            record["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            record["bound_ms"], record["bound_by"] = bound(
+                4 * b * h * s * s * d, 4 * q.numel() * q.element_size(), dtype
+            )
+            print(f"[3 kernel] {shape} bf16 median: kernel {record['ms']:.4f} ms (with lse {lse_ms:.4f} ms), plain {record['plain_ms']:.4f} ms, SDPA {record['library_ms']:.4f} ms; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
+    return record
+
+
+def phase_backward(fa):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    record = {}
+    for shape, dtype in BWD_CASES:
+        q, k, v = strided_qkv(shape, dtype, gen)
+        do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        out, lse = fa.FLASH_FWD(q, k, v, lse=True)
+        got = fa.FLASH_BWD(q, k, v, out, do, lse)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_reference(q, k, v, do, out)
+        errs = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.dtype == dtype and g.shape == q.shape, f"{name} {g.dtype} {g.shape}")
+            check(bool(torch.isfinite(g).all()), f"non-finite {name} at {shape}")
+            errs.append((g.float() - w.float()).abs().max().item())
+        print(f"[6 backward] {shape} {str(dtype)[6:]} strided q/k/v: max |kernel - plain| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (atol {TOL[dtype]['atol']}, rtol {TOL[dtype]['rtol']})")
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(g, w, **TOL[dtype], msg=lambda m: f"{name} at {shape}: {m}")
+        if shape == DIT_SHAPE:
+            b, s, h, d = shape
+            record["max_abs_err"] = max(errs)
+            record["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, do, out))
+            record["ms"] = cuda_ms(lambda: fa.FLASH_BWD(q, k, v, out, do, lse))
+            qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+            doh = do.transpose(1, 2).contiguous()
+            record["library_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
+            )
+            # in: q, k, v, o, dO and the fp32 lse; out: dq, dk, dv
+            nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+            record["bound_ms"], record["bound_by"] = bound(10 * b * h * s * s * d, nbytes, dtype)
+            print(f"[6 backward] {shape} bf16 median: kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, SDPA backward {record['library_ms']:.4f} ms; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
     return record
 
 
@@ -157,9 +260,9 @@ def phase_dit(fa, chexpert, config):
     check(rel <= 1e-2, f"relative L2 {rel} > 1e-2")
 
 
-def load_inference_script():
-    path = os.path.join(REPO, "experiments", "chexpert-dit", "inference_torch.py")
-    spec = importlib.util.spec_from_file_location("inference_torch", path)
+def load_script(name):
+    path = os.path.join(REPO, "experiments", "chexpert-dit", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -175,7 +278,7 @@ def phase_entry_point(fa, chexpert, config_cls, workdir):
     seeded.save_checkpoint(0)
     del seeded
 
-    inference_torch = load_inference_script()
+    inference_torch = load_script("inference_torch")
     os.environ["INFERENCE_CONFIG"] = json.dumps(cfg)
     forwards = [0]
 
@@ -185,13 +288,14 @@ def phase_entry_point(fa, chexpert, config_cls, workdir):
 
     hook = torch.nn.modules.module.register_module_forward_hook(count_denoiser)
     try:
-        fa.FLASH_FWD.launches = 0
+        reset_counts(fa)
         metric_output, samples, _ = inference_torch.main([])
         torch.cuda.synchronize()
-        launches = fa.FLASH_FWD.launches
+        launches, bwd_launches = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
     finally:
         hook.remove()
-    print(f"[5 entry] inference_torch.main(): {len(samples)} batches, {forwards[0]} denoiser forwards, {launches} kernel launches")
+    print(f"[5 entry] inference_torch.main(): {len(samples)} batches, {forwards[0]} denoiser forwards, {launches} forward kernel launches, {bwd_launches} backward")
+    check(bwd_launches == 0, f"classification launched the backward {bwd_launches} times")
     check(len(metric_output) == 4, f"metrics {metric_output}")
     check(len(samples) == INFERENCE_CONFIG["evaluation_batches"] + 1, f"{len(samples)} batches")
     for preds in samples:
@@ -212,6 +316,116 @@ def phase_entry_point(fa, chexpert, config_cls, workdir):
     return launches
 
 
+def phase_dit_grads(fa, chexpert, config):
+    from diffusion_classifier_tpu_torch.diffusion.schedule import make_schedule_fn
+    from diffusion_classifier_tpu_torch.engine.denoiser import Denoiser
+    from diffusion_classifier_tpu_torch.engine.steps import make_loss_fn
+
+    backbone = chexpert.build_backbone(config)
+    backbone.reset_parameters(torch.Generator().manual_seed(0))
+    model = Denoiser(backbone).to("cuda")
+    loss_fn = make_loss_fn(
+        model, make_schedule_fn(config.schedule, config.noise_d, config.image_size),
+        pred_param=config.pred_param, null_token=config.classes,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b = DIT_SHAPE[0]
+    x = torch.rand((b, 128, 128, 12), generator=gen, device="cuda") * 2 - 1
+    y = torch.randint(0, 2, (b,), generator=gen, device="cuda")
+    u, t = torch.rand((b,), generator=gen, device="cuda"), torch.rand((b,), generator=gen, device="cuda")
+    eps = torch.randn(x.shape, generator=gen, device="cuda")
+    results = []
+    for backend in ("auto", "xla"):
+        for block in backbone.blocks:
+            block.attn_backend = backend
+        model.zero_grad(set_to_none=True)
+        reset_counts(fa)
+        loss = loss_fn(x, y, u, t, eps)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
+        grads = torch.cat([p.grad.flatten() for p in model.parameters()])
+        results.append((loss.item(), grads, launches))
+    (loss_k, g_k, launches), (loss_p, g_p, plain_launches) = results
+    rel = ((g_k - g_p).norm() / g_p.norm()).item()
+    print(f"[7 dit-b4 grads] loss+backward B={b} bf16: kernel launches fwd {launches[0]} bwd {launches[1]}; loss kernel {loss_k:.6f} plain {loss_p:.6f}; rel L2 of {g_k.numel()} parameter gradients, kernels vs plain, {rel:.3e} (limit 2e-2)")
+    check(all(map(math.isfinite, (loss_k, loss_p))) and bool(torch.isfinite(g_k).all()), "non-finite loss or gradient")
+    check(launches == (12, 12), f"{launches} launches in one DiT-b4 loss and backward, expected (12, 12)")
+    check(plain_launches == (0, 0), f"attn_backend='xla' launched {plain_launches}")
+    # bf16 model: the kernels round p and ds to bf16 where the autograd of the
+    # plain forward keeps fp32, and the difference compounds over 12 blocks
+    # of bf16 activations (the forward alone differs by ~6e-3)
+    check(rel <= 2e-2, f"relative L2 of the gradients {rel} > 2e-2")
+
+
+def phase_train(fa, config_cls, workdir):
+    from diffusion_classifier_tpu_torch.data.synthetic import SyntheticDataLoader
+
+    cfg = dict(TRAINING_CONFIG, project_root=workdir)
+    train_torch = load_script("train_torch")
+    os.environ["TRAINING_CONFIG"] = json.dumps(cfg)
+    reset_counts(fa)
+    start = time.perf_counter()
+    engine = train_torch.main([])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    fwd, bwd = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
+    config = config_cls.from_dict(dict(cfg))
+    steps = 256 // config.batch_size
+    exp = config.experiment_path
+    with open(os.path.join(exp, "track.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    losses = [e["value"] for e in events if e.get("name") == "loss" and e.get("step") is not None]
+    print(f"[8 train] train_torch.main(): {len(losses)} steps in {seconds:.1f} s (eval and checkpoint included); launches fwd {fwd} bwd {bwd}; loss first {losses[0]:.5f} last {losses[-1]:.5f}")
+    check(len(losses) == steps, f"{len(losses)} logged losses, expected {steps}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    check(bwd == 12 * steps, f"{bwd} backward launches for {steps} steps, expected {12 * steps}")
+    check(fwd > 12 * steps, f"{fwd} forward launches: the training and the eval must both run the kernel")
+    for name in ("ema_params.pt", "train_state.pt", "experiment_state.json"):
+        check(os.path.isfile(os.path.join(exp, "checkpoints", name)), f"no checkpoints/{name}")
+
+    os.environ["INFERENCE_CONFIG"] = json.dumps(dict(cfg, use_comet=False))
+    metric_output, samples, _ = load_script("inference_torch").main([])
+    check(len(metric_output) == 4 and len(samples) == INFERENCE_CONFIG["evaluation_batches"] + 1,
+          f"inference on the trained checkpoint: {metric_output}")
+    for preds in samples:
+        check(bool(((preds >= 0) & (preds < 2)).all()), f"predictions {preds.tolist()}")
+    print(f"[8 train] inference_torch.main() on the trained checkpoint: {[{k: round(v, 4) for k, v in d.items()} for d in metric_output]}")
+
+    # the step alone: CUDA events around warm train steps at B=16
+    batch = next(iter(SyntheticDataLoader(
+        256, 64, batch_size=config.batch_size, image_size=config.image_size,
+        channels=config.image_channels, classes=config.classes, seed=1,
+    ).get_train_loader()))
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: engine.train_step(batch), reps=10, warmup=2)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[8 train] step B={config.batch_size} median {step_ms:.2f} ms -> {config.batch_size * 1e3 / step_ms:.2f} images/s; peak memory {peak_gb:.2f} GB")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.train_step(batch)
+        torch.cuda.synchronize()
+    rows = [
+        (e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    total = sum(r[0] for r in rows)
+    print(f"[8 train] profiler, one warm step: device time {total:.2f} ms in {sum(r[1] for r in rows)} kernels")
+    for ms, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"[8 train]   {ms:8.3f} ms {100 * ms / total:5.1f}% x{count:<4d} {key[:90]}")
+    return fwd, bwd
+
+
+def loaded_from_jax_package():
+    root = os.path.join(REPO, "diffusion_classifier_tpu") + os.sep
+    return sorted(
+        name for name, m in list(sys.modules.items())
+        if os.path.abspath(getattr(m, "__file__", None) or os.sep).startswith(root)
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU", file=sys.stderr)
@@ -225,26 +439,38 @@ def main() -> int:
 
     phase_device()
     phase_build(fa)
-    record = phase_kernel(fa)
-    phase_dit(fa, chexpert, ExperimentConfig.from_dict(dict(INFERENCE_CONFIG)))
+    records = {"flash_attn_fwd": phase_kernel(fa), "flash_attn_bwd": phase_backward(fa)}
+    config = ExperimentConfig.from_dict(dict(INFERENCE_CONFIG))
+    phase_dit(fa, chexpert, config)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
     try:
-        launches = phase_entry_point(fa, chexpert, ExperimentConfig, workdir)
+        classify_fwd = phase_entry_point(fa, chexpert, ExperimentConfig, workdir)
+        phase_dit_grads(fa, chexpert, config)
+        train_fwd, train_bwd = phase_train(fa, ExperimentConfig, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
+    stray = loaded_from_jax_package()
+    check(not stray, f"modules loaded from the JAX package: {stray}")
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL,
-        "launches": launches,
-        "max_abs_err": record["max_abs_err"],
-        "ms": record["ms"],
-        "plain_ms": record["plain_ms"],
-    }]}))
+    launches = {
+        "flash_attn_fwd": {"classify": classify_fwd, "train": train_fwd},
+        "flash_attn_bwd": {"classify": 0, "train": train_bwd},
+    }
+    print(json.dumps({"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name],
+            **{key: records[name][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        }
+        for name, (source, replaces) in KERNELS.items()
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,12 @@
 // qkv projection go in without a copy. The ragged last q and k/v tiles are
 // masked, so S needs no alignment.
 //
+// Row statistics for the backward: when `lse` is not null, the kernel also
+// writes the fp32 logsumexp of each score row in the log2 domain,
+// lse[b, h, s] = m + log2(l), so the backward (flash_attn_bwd.cu) recomputes
+// p = exp2(s − lse) without the row max and sum. With a null pointer nothing
+// more is written, and classification pays nothing for it.
+//
 // Built by nvcc into a shared library with a plain C entry point
 // (flash_attn_fwd) and bound with ctypes; no PyTorch headers.
 
@@ -81,9 +87,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int seq,
-                 Strides qs, Strides ks, Strides vs, Strides os,
-                 float scale_log2e) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int seq, Strides qs, Strides ks,
+                 Strides vs, Strides os, float scale_log2e) {
   constexpr int kQStride = D + 1;  // +1 pads shared rows off one bank
   constexpr int kKStride = D + 1;
   constexpr int kPStride = kBlockN + 1;
@@ -209,12 +215,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kOut; ++j)
       ob[row * os.s + tx + 16 * j] = from_float<T>(acc[i][j] / l[i]);
+    // m and l were reduced over the half-warp: every lane holds the row's
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(batch) * gridDim.y + head) * seq + row] =
+          m[i] + log2f(l[i]);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int batch, int seq, int heads, Strides qs, Strides ks,
+                   float* lse, int batch, int seq, int heads, Strides qs,
+                   Strides ks,
                    Strides vs, Strides os, float scale_log2e,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -225,31 +236,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), seq, qs, ks, vs, os,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, seq, qs, ks, vs, os,
       scale_log2e);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_dim(int dim, const void* q, const void* k, const void* v,
-                         void* o, int batch, int seq, int heads, Strides qs,
-                         Strides ks, Strides vs, Strides os, float c,
-                         cudaStream_t st) {
+                         void* o, float* lse, int batch, int seq, int heads,
+                         Strides qs, Strides ks, Strides vs, Strides os,
+                         float c, cudaStream_t st) {
   switch (dim) {
-    case 32: return launch<T, 32>(q, k, v, o, batch, seq, heads, qs, ks, vs, os, c, st);
-    case 64: return launch<T, 64>(q, k, v, o, batch, seq, heads, qs, ks, vs, os, c, st);
-    case 128: return launch<T, 128>(q, k, v, o, batch, seq, heads, qs, ks, vs, os, c, st);
+    case 32: return launch<T, 32>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, c, st);
+    case 64: return launch<T, 64>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, c, st);
+    case 128: return launch<T, 128>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, c, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// cudaError_t of the launch (0 = launched); the kernel's own faults show at
-// the next synchronisation.
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `lse` is null
+// or a contiguous fp32 [batch, heads, seq]. Returns the cudaError_t of the
+// launch (0 = launched); the kernel's own faults show at the next
+// synchronisation.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int dtype, int batch, int seq,
+                              void* o, float* lse, int dtype, int batch, int seq,
                               int heads, int dim, int64_t q_sb, int64_t q_ss,
                               int64_t q_sh, int64_t k_sb, int64_t k_ss,
                               int64_t k_sh, int64_t v_sb, int64_t v_ss,
@@ -262,11 +274,11 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_dim<float>(dim, q, k, v, o, batch, seq, heads, qs, ks, vs, os,
-                              scale_log2e, st);
+    err = dispatch_dim<float>(dim, q, k, v, o, lse, batch, seq, heads, qs, ks,
+                              vs, os, scale_log2e, st);
   else if (dtype == 1)
-    err = dispatch_dim<__nv_bfloat16>(dim, q, k, v, o, batch, seq, heads, qs, ks,
-                                      vs, os, scale_log2e, st);
+    err = dispatch_dim<__nv_bfloat16>(dim, q, k, v, o, lse, batch, seq, heads,
+                                      qs, ks, vs, os, scale_log2e, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

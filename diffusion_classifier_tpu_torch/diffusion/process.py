@@ -1,9 +1,9 @@
 """Forward noising and prediction conversions — port of ``diffusion/process.py``.
 
-Only what ELBO classification needs: ``bcast_right``, ``diffuse``,
-``pred_to_x``, ``pred_to_eps`` and ``clip_x``. Images are NHWC, per-sample
-scalars broadcast over the trailing axes. The sampler step and the training
-loss come with the sampler and the train step (ROADMAP A6, A7).
+What ELBO classification and training need: ``bcast_right``, ``diffuse``,
+``pred_to_x``, ``pred_to_eps``, ``clip_x`` and ``weighted_mse_loss``. Images
+are NHWC, per-sample scalars broadcast over the trailing axes. The sampler
+step comes with the sampler (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -12,7 +12,16 @@ from typing import Optional
 
 import torch
 
-__all__ = ["bcast_right", "diffuse", "clip_x", "pred_to_x", "pred_to_eps"]
+from .schedule import alpha_sigma, min_snr_weight
+
+__all__ = [
+    "bcast_right",
+    "diffuse",
+    "clip_x",
+    "pred_to_x",
+    "pred_to_eps",
+    "weighted_mse_loss",
+]
 
 
 def bcast_right(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -65,3 +74,23 @@ def pred_to_eps(pred, z_t, alpha_t, sigma_t, pred_param: str) -> torch.Tensor:
     if pred_param == "v":
         return _like(sigma_t, z_t) * z_t + _like(alpha_t, z_t) * pred
     raise ValueError(f"Invalid pred_param {pred_param!r}")
+
+
+def weighted_mse_loss(
+    pred: torch.Tensor,
+    z_t: torch.Tensor,
+    eps_t: torch.Tensor,
+    logsnr_t: torch.Tensor,
+    pred_param: str,
+) -> torch.Tensor:
+    """Min-SNR-weighted MSE on the ε residual: ``mean(w(logSNR)·(ε̂ − ε)²)``.
+
+    ε̂ comes from the model output by :func:`pred_to_eps`; ``w`` is
+    :func:`~.schedule.min_snr_weight`. Accumulates in float32 even when the
+    prediction is bfloat16.
+    """
+    alpha_t, sigma_t = alpha_sigma(logsnr_t)
+    eps_pred = pred_to_eps(pred, z_t, alpha_t, sigma_t, pred_param)
+    weight = bcast_right(min_snr_weight(logsnr_t, pred_param), z_t.ndim)
+    error = (eps_pred - eps_t).to(torch.float32)
+    return torch.mean(weight * torch.square(error))

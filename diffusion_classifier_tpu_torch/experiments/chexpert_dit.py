@@ -2,20 +2,21 @@
 
 DiT 384 wide (``384 // attention_head_dim`` heads, 6 × 64 by default), 12
 layers, patch size from the config; with the Haar DWT a 256 px, 3-channel
-image enters as 128 × 128 × 12. The synthetic data set is the JAX package's
-own (same arrays, same 256 train / 64 val split, same seed), loaded through
-its jax-free modules with the process index given explicitly.
+image enters as 128 × 128 × 12. The synthetic data set is the port's copy
+of the JAX package's (same arrays, same 256 train / 64 val split, same
+shuffles for the same seed).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..data.synthetic import SyntheticDataLoader
 from ..engine import DiffusionClassifier
 from ..models.dit import DiT, DiTConfig
-from ..utils.config import ExperimentConfig, load_reference_module
+from ..utils.config import ExperimentConfig
 
-__all__ = ["build_backbone", "build_data", "build_engine", "SyntheticData"]
+__all__ = ["build_backbone", "build_data", "build_engine"]
 
 WIDTH = 384
 NUM_LAYERS = 12
@@ -39,45 +40,19 @@ def build_backbone(config: ExperimentConfig) -> DiT:
             patch_size=config.patch_size,
             num_classes=config.classes,
             attn_backend=config.attn_backend,
+            remat=config.remat,
         ),
         dtype=dtype,
     )
 
 
-class SyntheticData:
-    """The val/test loader of the JAX package's synthetic set, single process.
-
-    The arrays cover the 256 train + 64 val images so the val split is the
-    JAX experiment's; training is not ported, so no train loader is built.
-    """
-
-    def __init__(self, num_train, num_val, *, batch_size, image_size, channels,
-                 classes, seed):
-        synthetic = load_reference_module("data/synthetic.py")
-        loader = load_reference_module("data/loader.py")
-        xs, ys, _ = synthetic.make_synthetic_arrays(
-            num_train + num_val,
-            image_size=image_size,
-            channels=channels,
-            classes=classes,
-            seed=seed,
-        )
-        self._val = loader.ArrayDataLoader(
-            xs[num_train:], ys[num_train:], batch_size, shuffle=False, seed=seed,
-            process_index=0, process_count=1,
-        )
-
-    def get_test_loader(self):
-        return self._val
-
-
-def build_data(config: ExperimentConfig) -> SyntheticData:
+def build_data(config: ExperimentConfig) -> SyntheticDataLoader:
     if config.data_path != "synthetic":
         raise NotImplementedError(
             "the CheXpert loader is not wired into the port yet (ROADMAP A11); "
             "use data_path 'synthetic'"
         )
-    return SyntheticData(
+    return SyntheticDataLoader(
         256, 64,
         batch_size=config.batch_size,
         image_size=config.image_size,

@@ -15,6 +15,11 @@ Same structure and the same numerics conventions as the flax module:
 - Patchify is a reshape plus one ``Dense`` over ``(py, px, c)`` patches,
   which is the flax ``Conv(kernel=p, stride=p)`` with its HWIO kernel
   flattened; unpatchify runs in ``(b, gh, py, gw, px, c)`` order.
+- The forward is differentiable end to end, the per-forward fp32 → bf16
+  weight casts included (their gradients land on the fp32 parameters), and
+  the attention's backward is the flash kernel's. ``remat`` recomputes each
+  block in the backward (``torch.utils.checkpoint``, as ``nn.remat`` does
+  per block in flax), so the forward kernel runs twice per block there.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from .layers import Dense, TimestepEmbedding, lecun_normal_, sinusoidal_embedding
@@ -67,6 +73,7 @@ class DiTConfig:
     norm_eps: float = 1e-5
     mlp_ratio: int = 4
     attn_backend: str = "auto"
+    remat: bool = False
 
     @property
     def hidden_dim(self) -> int:
@@ -206,8 +213,12 @@ class DiT(nn.Module):
         table = self.class_embedding.weight.to(self.dtype)
         cond = cond + F.embedding(class_labels.to(torch.long), table)
 
+        remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            tokens = block(tokens, cond)
+            if remat:
+                tokens = checkpoint(block, tokens, cond, use_reentrant=False)
+            else:
+                tokens = block(tokens, cond)
 
         # --- AdaLN final layer + unpatchify ---
         shift, scale = self.final_modulation(F.silu(cond)).chunk(2, dim=-1)

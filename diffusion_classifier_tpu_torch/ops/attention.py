@@ -2,13 +2,14 @@
 
 The backend names are the JAX config's:
 
-- ``"pallas"`` and ``"auto"`` — the hand-written CUDA kernel
-  (:mod:`.flash_attention`) for a CUDA tensor whenever its gate holds;
-- ``"xla"``, any CPU tensor, and shapes outside the gate — the plain PyTorch
-  version of the same arithmetic.
+- ``"pallas"`` and ``"auto"`` — :class:`.flash_attention.FlashAttention`
+  whenever its gate holds: the hand-written CUDA kernels, forward and
+  backward, for CUDA tensors; their plain versions for CPU tensors;
+- ``"xla"`` and shapes outside the gate — the plain PyTorch forward,
+  differentiated by autograd.
 
 The TPU's ``auto`` routing (kernel only at ≥ 256 tokens) was measured on a
-TPU and is not carried over: ``auto`` takes the kernel until routing is
+TPU and is not carried over: ``auto`` takes the kernels until routing is
 measured on the H100 (ROADMAP A2).
 """
 
@@ -27,6 +28,6 @@ def attention(
     """Scaled dot-product attention over ``[B, S, H, D]``; output dtype matches ``q``."""
     if backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"Unknown attention backend {backend!r}")
-    if backend != "xla" and q.device.type == "cuda" and supports(q, k, v):
+    if backend != "xla" and supports(q, k, v):
         return flash_attention(q, k, v)
     return flash_attention_reference(q, k, v)

@@ -2,7 +2,8 @@
 
 The tests hand the same numpy inputs to a JAX function and its port, with
 the same weights (the flax tree converted by the port's weight bridge) and
-the same random draws (made by JAX, replayed through :class:`JaxDraws`).
+the same random draws (made by JAX, replayed through :class:`JaxDraws` for
+classification and :class:`JaxTrainDraws` for the train step).
 """
 
 import jax
@@ -42,6 +43,28 @@ class JaxDraws:
         t = jax.random.uniform(k_t, t_shape)
         eps = jax.random.normal(k_eps, eps_shape, dtype=jax.numpy.float32)
         return torch.from_numpy(np.array(t)), torch.from_numpy(np.array(eps))
+
+
+class JaxTrainDraws:
+    """Replays ``engine/steps.py``'s JAX key tree as a port ``TrainDraws`` provider.
+
+    ``train_step(state, x, labels, rng)``: with ``k`` microbatches the step
+    takes ``split(rng, k)[i]`` for microbatch ``i`` (`:89`), else ``rng``
+    itself; the loss splits its key as ``r_drop, r_t, r_noise = split(key,
+    3)`` (`:47`) and draws ``u = uniform(r_drop, [b])``, ``t = uniform(r_t,
+    [b])``, ``ε = normal(r_noise, x.shape)``.
+    """
+
+    def __init__(self, rng):
+        self.rng = rng
+
+    def loss(self, micro, n_micro, batch, x_shape):
+        key = self.rng if n_micro == 1 else jax.random.split(self.rng, n_micro)[micro]
+        r_drop, r_t, r_noise = jax.random.split(key, 3)
+        u = jax.random.uniform(r_drop, (batch,))
+        t = jax.random.uniform(r_t, (batch,))
+        eps = jax.random.normal(r_noise, x_shape, dtype=jax.numpy.float32)
+        return tuple(torch.from_numpy(np.array(a)) for a in (u, t, eps))
 
 
 def rel_l2(a, b) -> float:

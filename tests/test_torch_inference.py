@@ -57,7 +57,8 @@ def test_engine_classify_with_dwt_matches_jax_engine():
     )
     eng.init_params()
     ema = jax.tree.map(np.asarray, jeng.state.ema_params)
-    eng.denoiser.load_state_dict(flax_to_state_dict(ema, eng.denoiser))
+    # classify runs on the EMA copy, as the JAX engine's does
+    eng.state.ema_model.load_state_dict(flax_to_state_dict(ema, eng.denoiser))
     got = eng.classify(x, draws=JaxDraws(classify_key, fast=False))
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -100,11 +101,22 @@ def test_engine_refuses_what_is_not_ported():
     eng = DiffusionClassifier(
         DiT(DiTConfig(**TINY)), ExperimentConfig.from_dict(dict(CONFIG)), device="cpu"
     )
-    for call in (eng.train_loop, eng.sample, eng.loss):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.sample()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.train_loop([], [], plot_function=print)
     with pytest.raises(RuntimeError, match="initialize"):
         eng.classify(np.zeros((1, 32, 32, 3), np.float32))
+    with pytest.raises(RuntimeError, match="initialize"):
+        eng.loss(np.zeros((1, 32, 32, 3), np.float32))
+    bf16_state = DiffusionClassifier(
+        DiT(DiTConfig(**TINY)),
+        ExperimentConfig.from_dict(dict(CONFIG, optimizer_state_dtype="bf16")),
+        device="cpu",
+    )
+    bf16_state.init_params()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bf16_state._build_train_state(total_steps=1)
 
 
 _SCRIPT = """

@@ -1,14 +1,15 @@
-"""Port parity: Haar DWT/IDWT, the flash-attention plain version and the dispatcher.
+"""Port parity: Haar DWT/IDWT, the flash-attention plain versions and the dispatcher.
 
-The plain version is held to the JAX Pallas ``flash_attention``, which runs
-in interpret mode on the CPU. The CUDA kernel itself runs only on the card:
-its tests are in ``test_torch_gpu.py``.
+The plain forward and backward are held to the JAX Pallas ``flash_attention``
+and its custom VJP, which run in interpret mode on the CPU. The CUDA kernels
+themselves run only on the card: their tests are in ``test_torch_gpu.py``.
 """
 
 import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,13 +65,55 @@ def test_plain_version_matches_pallas_interpret(dtype, tol):
     )
 
 
+# fp32: measured max 5e-7 on gradients of order 1, held to the forward's
+# 2e-5 / 2e-3. bf16: the two round p and ds to bf16 at the same points, but
+# δ differs: the port's rowsum(dO∘O) reads the bf16-rounded O where JAX's
+# rowsum(p∘dp) stays in fp32; measured one bf16 ulp (3.9e-3) on gradients
+# of order 1, held to 2e-2 / 2e-2.
+@pytest.mark.parametrize(
+    "dtype,tol",
+    [("float32", dict(atol=2e-5, rtol=2e-3)), ("bfloat16", dict(atol=2e-2, rtol=2e-2))],
+)
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 128, 2, 64), (2, 128, 2, 32)],  # JAX's lane-group and head-major backward
+)
+def test_plain_backward_matches_pallas_interpret(shape, dtype, tol):
+    q, k, v = _qkv(shape, seed=2)
+    do = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    _, vjp = jax.vjp(jax_flash, *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do, jdt))
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v, do))
+    got = fa.flash_attention_bwd_reference(tq, tk, tv, tdo)
+    for g, w in zip(got, want):
+        assert g.dtype == tq.dtype and g.shape == tq.shape
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32)), **tol)
+
+
+def test_function_on_cpu_matches_plain_autograd_through_fused_qkv():
+    b, s, h, d = 2, 72, 2, 32
+    rng = np.random.default_rng(4)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d)).astype(np.float32))
+    do = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_reference):
+        x = qkv.clone().requires_grad_()
+        q, k, v = (t.view(b, s, h, d) for t in x.split(h * d, dim=-1))
+        fn(q, k, v).backward(do)
+        grads.append(x.grad)
+    # the three thirds' gradients side by side in the fused tensor; the
+    # Function's δ form differs from autograd's in the last fp32 bits
+    torch.testing.assert_close(grads[0], grads[1], atol=2e-5, rtol=2e-3)
+
+
 @pytest.mark.parametrize("backend", ["auto", "pallas", "xla"])
 def test_dispatcher_sends_cpu_tensors_to_plain_version(backend):
     q, k, v = (torch.from_numpy(a) for a in _qkv((1, 200, 2, 32), seed=1))
-    before = fa.FLASH_FWD.launches
+    before = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
     out = attention(q, k, v, backend=backend)
     torch.testing.assert_close(out, fa.flash_attention_reference(q, k, v), rtol=0, atol=0)
-    assert fa.FLASH_FWD.launches == before
+    assert (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) == before
 
 
 def test_dispatcher_rejects_unknown_backend():
@@ -90,10 +133,12 @@ def test_supports_gate():
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     q = torch.zeros(1, 128, 2, 64)
-    before = fa.FLASH_FWD.launches
+    before = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
     with pytest.raises(ValueError, match="CUDA"):
         fa.FLASH_FWD(q, q, q)
-    assert fa.FLASH_FWD.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.FLASH_BWD(q, q, q, q, q, torch.zeros(1, 2, 128))
+    assert (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) == before
 
 
 def test_kernel_module_imports_without_nvcc():
@@ -101,6 +146,7 @@ def test_kernel_module_imports_without_nvcc():
         "import os, sys; os.environ['PATH'] = ''; os.environ.pop('CUDA_HOME', None); "
         "import diffusion_classifier_tpu_torch.ops.flash_attention as m; "
         "assert m.FLASH_FWD._lib is None and m.FLASH_FWD.launches == 0; "
+        "assert m.FLASH_BWD._lib is None and m.FLASH_BWD.launches == 0; "
         "assert 'jax' not in sys.modules"
     )
     proc = subprocess.run(
