@@ -12,25 +12,32 @@ through ``experiments/chexpert-dit/inference_torch.py``, and DiT-b4 training
 through ``experiments/chexpert-dit/train_torch.py``. Phases:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: compiles both kernels, prints the seconds and ptxas' register use;
+2. build: compiles both kernels, prints the seconds, ptxas' register use and
+   spills, and the ``HMMA`` instructions of every kernel entry from
+   ``cuobjdump -sass`` (found beside ``nvcc``); fails if a bf16 entry of the
+   forward, dk/dv or dq kernels has none (tensor cores unused);
 3. forward kernel vs its plain PyTorch version on the card at the main
-   path's shapes, strided q/k/v thirds and a ragged sequence included,
-   with timings (kernel, plain, and SDPA as a yardstick) and the bound;
+   path's shapes, strided q/k/v thirds and ragged and odd sequences in both
+   dtypes included, with timings (plain; kernel and SDPA as a yardstick in
+   turns: kernel, SDPA, SDPA, kernel, each run 10 calls back to back) and
+   the bound;
 4. the full-width DiT-b4 forward with the kernel vs with the plain
    attention on the same weights: relative L2 ≤ 1e-2, 12 launches;
 5. the classify entry point: a seeded checkpoint, ``inference_torch.main()``
-   with launch counts, then classify throughput at B=16 and latency at B=1;
+   with launch counts and no alignment copy, then classify throughput at
+   B=16 and latency at B=1, each with a profiler table;
 6. backward kernel vs its plain version at the same kind of shapes, with
-   timings (kernel, plain, SDPA's backward) and the bound;
+   timings (plain; kernel and SDPA's backward in turns) and the bound;
 7. full-width DiT-b4 gradients at B=16, kernels vs plain attention on the
    same weights and draws: relative L2 ≤ 2e-2, 12 + 12 launches;
 8. the training entry point: ``train_torch.main()`` for one epoch (16 steps
-   at B=16) with its eval, launch counts, a finite loss at every step, a
-   checkpoint that ``inference_torch.main()`` reads back; then the median
-   step time, images/s and one profiler trace of a warm step.
+   at B=16) with its eval, launch counts, no alignment copy, a finite loss
+   at every step, a checkpoint that ``inference_torch.main()`` reads back;
+   then the median step time, images/s and one profiler trace of a warm
+   step.
 
-Each path's launch counts are set to 0 just before it runs and read just
-after. Any failed check raises and exits non-zero. The second-to-last line
+Each path's launch and copy counts are set to 0 just before it runs and read
+just after. Any failed check raises and exits non-zero. The second-to-last line
 is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX, and nothing of the JAX package.
@@ -63,18 +70,31 @@ DIT_SHAPE = (16, 1024, 6, 64)
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 without
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# ragged last tiles and odd sequences, in bf16 (tensor cores, every head
+# dim) as in fp32 (scalar kernels)
+RAGGED_CASES = [
+    ((2, 200, 2, 32), torch.float32),
+    ((2, 200, 2, 64), torch.bfloat16),
+    ((1, 65, 1, 128), torch.bfloat16),
+    ((3, 77, 2, 32), torch.bfloat16),
+]
 KERNEL_CASES = [
     (DIT_SHAPE, torch.bfloat16),
     ((2, 1024, 6, 64), torch.float32),
     ((1, 1024, 3, 128), torch.bfloat16),
-    ((2, 200, 2, 32), torch.float32),  # ragged last tiles
+    *RAGGED_CASES,
 ]
 BWD_CASES = [
     (DIT_SHAPE, torch.bfloat16),
     ((2, 1024, 6, 64), torch.float32),
     ((1, 512, 3, 128), torch.bfloat16),
-    ((2, 200, 2, 32), torch.float32),  # ragged last tiles
+    *RAGGED_CASES,
 ]
+# repetitions of each turn when a kernel is timed against its library call,
+# and the back-to-back calls in each repetition: with one call, the event
+# pair also times the host's work in the wrapper while the card waits
+TURN_REPS = 50
+BACK_TO_BACK = 10
 # fp32: the JAX suite's flash tolerance (tests/test_ops.py:66-68); bf16: one
 # bf16 ulp of an O(1) output
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-3), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -104,19 +124,33 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median milliseconds of ``fn()`` over ``reps`` runs, each timed with CUDA events."""
+def cuda_times(fn, reps, warmup=3, inner=1):
+    """Milliseconds per call of ``fn()`` in ``reps`` runs of ``inner`` calls, each run timed with CUDA events."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / inner)
+    return times
+
+
+def cuda_ms(fn, reps=20, warmup=3, inner=1):
+    """Median milliseconds per call of ``fn()`` over ``reps`` runs of ``inner`` calls."""
+    return statistics.median(cuda_times(fn, reps, warmup, inner))
+
+
+def in_turns(kernel_fn, library_fn, reps=TURN_REPS):
+    """``(kernel_ms, library_ms)``: medians over turns kernel, library, library, kernel."""
+    times = {kernel_fn: [], library_fn: []}
+    for fn in (kernel_fn, library_fn, library_fn, kernel_fn):
+        times[fn] += cuda_times(fn, reps, inner=BACK_TO_BACK)
+    return statistics.median(times[kernel_fn]), statistics.median(times[library_fn])
 
 
 def bound(flops, nbytes, dtype):
@@ -127,8 +161,15 @@ def bound(flops, nbytes, dtype):
 
 
 def reset_counts(fa):
-    fa.FLASH_FWD.launches = 0
-    fa.FLASH_BWD.launches = 0
+    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD):
+        kernel.launches = 0
+        kernel.copies = 0
+
+
+def check_no_copies(fa, path):
+    copies = (fa.FLASH_FWD.copies, fa.FLASH_BWD.copies)
+    print(f"{path} alignment copies: forward {copies[0]}, backward {copies[1]}")
+    check(copies == (0, 0), f"{path}: the kernels copied {copies} unaligned inputs")
 
 
 def strided_qkv(shape, dtype, gen):
@@ -136,6 +177,37 @@ def strided_qkv(shape, dtype, gen):
     b, s, h, d = shape
     qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(dtype)
     return [x.view(b, s, h, d) for x in qkv.split(h * d, dim=-1)]
+
+
+# kernel names by what they compute, for the profiler's summary line
+CATEGORIES = (
+    ("flash forward", ("flash_fwd",)),
+    ("flash backward", ("dkdv", "dq_", "delta")),
+    ("matmul", ("gemm", "addmm", "matmul", "cutlass", "xmma", "cublas", "nvjet")),
+)
+
+
+def profile_table(tag, fn):
+    """Profile one call of ``fn``; print device time by kernel and by category, return the total ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [
+        (e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    total = sum(r[0] for r in rows)
+    by_category = dict.fromkeys([c for c, _ in CATEGORIES] + ["other (elementwise, reductions, copies)"], 0.0)
+    for ms, _, key in rows:
+        category = next((c for c, words in CATEGORIES if any(w in key for w in words)), None)
+        by_category[category or "other (elementwise, reductions, copies)"] += ms
+    print(f"{tag} profiler: device time {total:.2f} ms in {sum(r[1] for r in rows)} kernels; " + ", ".join(
+        f"{c} {ms:.2f} ms ({100 * ms / total:.1f}%)" for c, ms in by_category.items()))
+    for ms, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"{tag}   {ms:8.3f} ms {100 * ms / total:5.1f}% x{count:<4d} {key[:90]}")
+    return total
 
 
 def phase_device():
@@ -150,25 +222,58 @@ def phase_device():
     )
 
 
+def entry_name(text):
+    """``"dkdv bf16 D=64"`` for a mangled kernel name in ``text``; ``text`` if none."""
+    match = re.search(r"(flash_fwd|delta|dkdv|dq)(_mma|_bf16)?_kernelI(13__nv_bfloat16|f)?Li(\d+)E", text)
+    if not match:
+        return text.strip()
+    name, mma, dtype, dim = match.groups()
+    return f"{name} {'f32' if dtype == 'f' else 'bf16'} D={dim}"
+
+
+def sass_hmma(fa, kernel):
+    """``{entry: HMMA count}`` over the kernel entries of ``kernel``'s library (``cuobjdump -sass``)."""
+    tool = os.path.join(os.path.dirname(fa._nvcc()), "cuobjdump")
+    check(os.path.isfile(tool), f"no cuobjdump beside nvcc: {tool}")
+    sass = subprocess.run(
+        [tool, "-sass", kernel.library_path()], capture_output=True, text=True, check=True,
+        timeout=300,
+    ).stdout
+    counts, entry = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            entry = entry_name(line.split("Function :", 1)[1])
+            counts[entry] = 0
+        elif entry is not None and re.search(r"\bHMMA\.", line):
+            counts[entry] += 1
+    return counts
+
+
 def phase_build(fa):
     seconds = fa.build_all(fa.FLASH_FWD, fa.FLASH_BWD)
     print(f"[2 build] flash_attn_fwd and flash_attn_bwd built and loaded in {seconds:.2f} s")
+    hmma = {}
     for kernel in (fa.FLASH_FWD, fa.FLASH_BWD):
         # ptxas -v: one "Compiling entry function '<mangled name>'" line, then
         # its spills, then its registers
         entry = spill = None
+        counts = sass_hmma(fa, kernel)
         for line in kernel.build_log.splitlines():
             if "Compiling entry" in line:
-                match = re.search(r"(flash_fwd|delta|dkdv|dq)_kernelI(13__nv_bfloat16|f)Li(\d+)E", line)
-                name, dtype, dim = match.groups() if match else (line.strip(), "?", "?")
-                entry = f"{name} {'bf16' if dtype != 'f' else 'f32'} D={dim}"
+                entry = entry_name(line)
             elif "spill stores" in line:
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)
             elif "Used" in line and "registers" in line and entry:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                print(f"[2 build]   {entry}: {regs} registers, {spill} bytes spilled")
+                print(f"[2 build]   {entry}: {regs} registers, {spill} bytes spilled, {counts.get(entry)} HMMA")
                 entry = None
-    return seconds
+        # every bf16 entry of the attention passes runs on the tensor cores
+        tensor_core = {e: n for e, n in counts.items() if e.split()[0] in ("flash_fwd", "dkdv", "dq") and "bf16" in e}
+        check(len(tensor_core) == (3 if kernel is fa.FLASH_FWD else 6),
+              f"bf16 entries of {kernel.name} in the SASS: {sorted(counts)}")
+        check(all(tensor_core.values()), f"bf16 entries of {kernel.name} without HMMA: {tensor_core}")
+        hmma[kernel.name] = tensor_core
+    return hmma
 
 
 def phase_kernel(fa):
@@ -189,13 +294,15 @@ def phase_kernel(fa):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             record["max_abs_err"] = err
             record["plain_ms"] = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
-            record["ms"] = cuda_ms(lambda: fa.FLASH_FWD(q, k, v))
-            lse_ms = cuda_ms(lambda: fa.FLASH_FWD(q, k, v, lse=True))
-            record["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            record["ms"], record["library_ms"] = in_turns(
+                lambda: fa.FLASH_FWD(q, k, v), lambda: F.scaled_dot_product_attention(qh, kh, vh)
+            )
+            lse_ms = cuda_ms(lambda: fa.FLASH_FWD(q, k, v, lse=True), reps=TURN_REPS, inner=BACK_TO_BACK)
+            record["library_ratio"] = record["ms"] / record["library_ms"]
             record["bound_ms"], record["bound_by"] = bound(
                 4 * b * h * s * s * d, 4 * q.numel() * q.element_size(), dtype
             )
-            print(f"[3 kernel] {shape} bf16 median: kernel {record['ms']:.4f} ms (with lse {lse_ms:.4f} ms), plain {record['plain_ms']:.4f} ms, SDPA {record['library_ms']:.4f} ms; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
+            print(f"[3 kernel] {shape} bf16 median: kernel {record['ms']:.4f} ms (with lse {lse_ms:.4f} ms), plain {record['plain_ms']:.4f} ms; in turns of {TURN_REPS} (kernel, SDPA, SDPA, kernel): kernel {record['ms']:.4f} ms, SDPA {record['library_ms']:.4f} ms, kernel/SDPA {record['library_ratio']:.3f}; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
     return record
 
 
@@ -221,17 +328,18 @@ def phase_backward(fa):
             b, s, h, d = shape
             record["max_abs_err"] = max(errs)
             record["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, do, out))
-            record["ms"] = cuda_ms(lambda: fa.FLASH_BWD(q, k, v, out, do, lse))
             qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
             oh = F.scaled_dot_product_attention(qh, kh, vh)
             doh = do.transpose(1, 2).contiguous()
-            record["library_ms"] = cuda_ms(
-                lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)
+            record["ms"], record["library_ms"] = in_turns(
+                lambda: fa.FLASH_BWD(q, k, v, out, do, lse),
+                lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True),
             )
+            record["library_ratio"] = record["ms"] / record["library_ms"]
             # in: q, k, v, o, dO and the fp32 lse; out: dq, dk, dv
             nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
             record["bound_ms"], record["bound_by"] = bound(10 * b * h * s * s * d, nbytes, dtype)
-            print(f"[6 backward] {shape} bf16 median: kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, SDPA backward {record['library_ms']:.4f} ms; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
+            print(f"[6 backward] {shape} bf16 median: plain {record['plain_ms']:.4f} ms; in turns of {TURN_REPS} (kernel, SDPA, SDPA, kernel): kernel {record['ms']:.4f} ms, SDPA backward {record['library_ms']:.4f} ms, kernel/SDPA {record['library_ratio']:.3f}; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
     return record
 
 
@@ -295,6 +403,7 @@ def phase_entry_point(fa, chexpert, config_cls, workdir):
     finally:
         hook.remove()
     print(f"[5 entry] inference_torch.main(): {len(samples)} batches, {forwards[0]} denoiser forwards, {launches} forward kernel launches, {bwd_launches} backward")
+    check_no_copies(fa, "[5 entry]")
     check(bwd_launches == 0, f"classification launched the backward {bwd_launches} times")
     check(len(metric_output) == 4, f"metrics {metric_output}")
     check(len(samples) == INFERENCE_CONFIG["evaluation_batches"] + 1, f"{len(samples)} batches")
@@ -313,6 +422,9 @@ def phase_entry_point(fa, chexpert, config_cls, workdir):
     ms1 = cuda_ms(lambda: engine.classify(images[:1]), reps=10, warmup=2)
     print(f"[5 entry] classify B=16 (4 evals x 2 classes): {ms16:.2f} ms -> {16e3 / ms16:.2f} images/s")
     print(f"[5 entry] classify B=1 latency (4 evals x 2 classes): {ms1:.2f} ms")
+    for b, ms in ((16, ms16), (1, ms1)):
+        busy = profile_table(f"[5 entry] classify B={b}", lambda: engine.classify(images[:b]))
+        print(f"[5 entry] classify B={b}: device busy {busy:.2f} of {ms:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / ms):.1f}%")
     return launches
 
 
@@ -344,6 +456,8 @@ def phase_dit_grads(fa, chexpert, config):
         loss.backward()
         torch.cuda.synchronize()
         launches = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
+        if backend == "auto":
+            check_no_copies(fa, "[7 dit-b4 grads]")
         grads = torch.cat([p.grad.flatten() for p in model.parameters()])
         results.append((loss.item(), grads, launches))
     (loss_k, g_k, launches), (loss_p, g_p, plain_launches) = results
@@ -370,6 +484,7 @@ def phase_train(fa, config_cls, workdir):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     fwd, bwd = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
+    check_no_copies(fa, "[8 train]")
     config = config_cls.from_dict(dict(cfg))
     steps = 256 // config.batch_size
     exp = config.experiment_path
@@ -402,19 +517,8 @@ def phase_train(fa, config_cls, workdir):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[8 train] step B={config.batch_size} median {step_ms:.2f} ms -> {config.batch_size * 1e3 / step_ms:.2f} images/s; peak memory {peak_gb:.2f} GB")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.train_step(batch)
-        torch.cuda.synchronize()
-    rows = [
-        (e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    total = sum(r[0] for r in rows)
-    print(f"[8 train] profiler, one warm step: device time {total:.2f} ms in {sum(r[1] for r in rows)} kernels")
-    for ms, count, key in sorted(rows, reverse=True)[:12]:
-        print(f"[8 train]   {ms:8.3f} ms {100 * ms / total:5.1f}% x{count:<4d} {key[:90]}")
+    busy = profile_table("[8 train] one warm step", lambda: engine.train_step(batch))
+    print(f"[8 train] step: device busy {busy:.2f} of {step_ms:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / step_ms):.1f}%")
     return fwd, bwd
 
 
@@ -438,7 +542,7 @@ def main() -> int:
     from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
 
     phase_device()
-    phase_build(fa)
+    hmma = phase_build(fa)
     records = {"flash_attn_fwd": phase_kernel(fa), "flash_attn_bwd": phase_backward(fa)}
     config = ExperimentConfig.from_dict(dict(INFERENCE_CONFIG))
     phase_dit(fa, chexpert, config)
@@ -467,7 +571,9 @@ def main() -> int:
             "launches": sum(launches[name].values()),
             "launches_by_path": launches[name],
             **{key: records[name][key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_ratio")},
+            "hmma": hmma[name],
         }
         for name, (source, replaces) in KERNELS.items()
     ]}))

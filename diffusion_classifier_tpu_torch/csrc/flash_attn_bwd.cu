@@ -1,55 +1,85 @@
-// Non-causal flash-attention backward for Hopper (sm_90a), bf16 and fp32.
+// Non-causal flash-attention backward for Hopper (sm_90a): bf16 on the tensor
+// cores, fp32 on scalar FMAs.
 //
 // Replaces the TPU Pallas backward `_flash_bwd` of
-// diffusion_classifier_tpu/ops/flash_attention.py: its lane-group kernel
-// `_bwd_kernel_lanes` and its head-major kernel `_bwd_kernel_bh`, one
-// function `_bwd_one_head` in two VMEM layouts. It computes the same thing:
+// diffusion_classifier_tpu/ops/flash_attention.py: its lane-group path
+// (:304, pallas_call :321, kernel `_bwd_kernel_lanes` :244) and its
+// head-major path (pallas_call :336, kernel `_bwd_kernel_bh` :264), one
+// function `_bwd_one_head` (:216) in two VMEM layouts. It computes
 //
-//   s  = (q·c)·kᵀ in fp32, c = log2(e)/√D     (q and k upcast first)
-//   p  = exp2(s − lse)                        (lse = m + log2 l from the forward)
-//   dv = (p rounded to dO's dtype)ᵀ·dO,       fp32 sums
-//   dp = dO·vᵀ in fp32
-//   δ  = rowsum(dO ∘ O) in fp32               (= rowsum(p ∘ dp))
+//   s  = c·(q·kᵀ), c = log2(e)/√D, fp32 sums   p = exp2(s − lse)
+//   dv = (p rounded to dO's dtype)ᵀ·dO,  dp = dO·vᵀ,  fp32 sums
+//   δ  = rowsum(dO ∘ O) in fp32                (= rowsum(p ∘ dp))
 //   ds = p ∘ (dp − δ), rounded to q's dtype
 //   dq = scale·ds·k,  dk = scale·dsᵀ·q,       outputs in the input dtype
 //
+// with lse = m + log2 l, the forward's row statistic (flash_attn_fwd.cu).
 // The TPU kernel held one head's whole [S, S] p/dp/ds in VMEM and gated
-// S ≤ 1024, falling back to XLA above. A Hopper block has at most 227 KB of
-// shared memory, so this is the FA2 design, in three launches with no S
-// limit and no atomics (the result is the same from run to run):
+// S ≤ 1024. A Hopper block has at most 227 KB of shared memory, so this is
+// the FA2 design in three launches, with no S limit and no atomics (the
+// gradients are the same bits from run to run):
 //
-//   1. delta: one warp per score row, δ = rowsum(dO ∘ O) in fp32 — the
-//      forward's output stands in for the [S, S] product p ∘ dp;
-//   2. dkdv: one block per (64-row K/V tile, head, batch); K and V stay in
-//      shared memory while the block streams 64-row q/dO tiles and keeps the
-//      tile's dk and dv sums in registers;
-//   3. dq: one block per (64-row q tile, head, batch), streaming K/V tiles.
-//      p and ds are recomputed here rather than summed across blocks.
+//   1. δ = rowsum(dO ∘ O) in fp32 (delta_bf16_kernel: D/8 lanes per score
+//      row with 16-byte loads; delta_kernel, fp32: one warp per row);
+//   2. dk/dv: one block per (K/V tile, head, batch) streaming q/dO;
+//   3. dq: one block per (q tile, head, batch) streaming K/V; it
+//      recomputes s and dp (14 rather than 10 S²·D flops per head), which
+//      buys run-to-run identical dq without atomics.
 //
-// Thread (ty, tx) = (tid / 16, tid % 16) of 256 owns rows 4·ty..4·ty+3 and
-// columns tx + 16·j of each 64×64 tile, as in the forward. All products are
-// scalar fp32 FMAs on tiles staged in shared memory as fp32 (a product of
-// two bf16 values is exact in fp32, so this is the TPU kernel's
-// arithmetic); the score sums run in the forward's order, so p here is the
-// forward's p.
+// Bound: at (B, S, H, D) = (16, 1024, 6, 64) bf16 the call needs
+// 10·B·H·S²·D = 64.4 GFLOP (s, dp, dv, dk, dq) over 101 MB (q, k, v, O, dO
+// and the fp32 lse in; dq, dk, dv out), ~640 flops per byte, above the
+// H100's ~295 flop/byte bf16 ridge: compute-bound, 0.0651 ms at the 989
+// TFLOP/s bf16 dense peak (chip_smoke.py's bound, H100 80GB HBM3 at 700 W).
+// Only the tensor cores come near it, so the bf16 passes are built on them,
+// every product an `mma.sync.m16n8k16` (bf16 operands, fp32 accumulators),
+// 4 warps a block. Each warp owns two 16-row bands at D ≤ 64 (one at
+// D = 128, register budget): with one band, one `ldmatrix` fed two `mma`s and
+// shared-memory reads set the pace; two bands double the products per read.
+// The streamed tiles are 32 rows and ride a two-deep `cp.async` ring (the
+// next tile's copy runs under this tile's products). tools/flash_tiling_sweep.py
+// times the other tilings.
 //
-// Bound: at (B, S, H, D) = (16, 1024, 6, 64) bf16 the call does
-// 10·B·H·S²·D = 64.4 GFLOP (s, dv, dp, dq, dk: five S²·D products per head)
-// over ~101 MB (q, k, v, O, dO and the fp32 lse in; dq, dk, dv out) — about
-// 640 flops per byte, above the H100's ~295 flop/byte bf16 ridge, so it is
-// compute-bound: 65 µs at the 989 TFLOP/s bf16 dense peak. This scalar-FMA
-// version runs far below that; the later speed work is `wgmma` fed by TMA.
+// dkdv_mma_kernel: K/V rows are the M dimension. The q/dO tiles stream with
+// their lse and δ, and the tiles are computed transposed: Sᵀ = K·Qᵀ and
+// dPᵀ = V·dOᵀ (K, V as A fragments by `ldmatrix` at each k step — held for the
+// whole sweep beside two bands' dk/dv sums they would pass 255 registers;
+// Q, dO as B), then Pᵀ = exp2(c·Sᵀ − lse[col]) and dSᵀ = Pᵀ∘(dPᵀ − δ[col]) on
+// the accumulators, whose m16n8 layout packed to bf16 is the A fragment of
+// the next product: dV += bf16(Pᵀ)·dO and dK += bf16(dSᵀ)·Q take A from
+// registers and dO, Q through `ldmatrix.trans`. P and dS never touch shared
+// memory; `scale` multiplies dK once at the store.
+//
+// dq_mma_kernel: q rows are M; Q and dO are A fragments in registers for the
+// whole sweep, and K/V tiles stream. S = Q·Kᵀ, dP = dO·Vᵀ, dS = P∘(dP − δ[row])
+// in registers, dQ += bf16(dS)·K with K through `ldmatrix.trans`.
+//
+// In both, c and −lse enter in one FFMA and exp2 is one `ex2.approx`. The
+// ragged last tiles: rows past `seq` are zero-filled by `cp.async`, p (and so
+// ds) is forced to 0 in columns past `seq` (a zero q row would otherwise
+// score s = 0 against lse 0, p = 1), and rows past `seq` are never stored.
+//
+// Where the bf16 arithmetic differs from `_bwd_one_head`: c multiplies the
+// fp32 accumulator after q·k instead of q before it (tensor-core operands are
+// bf16; benchmarks/flash_bf16qk_probe.py is the TPU's probe of this variant),
+// the tensor cores sum in their own order, and `ex2.approx` is within ~2^-22
+// relative of exp2. All are fp32 rounding; the gradients stay within bf16
+// atol/rtol 2e-2 of the plain version (tests/test_torch_ops.py holds the
+// reordered plain version to that bound on the CPU; chip_smoke.py and
+// tests/test_torch_gpu.py the kernels on the card).
+//
+// fp32 keeps the scalar kernels dkdv_kernel and dq_kernel (fp32 has no exact
+// tensor-core product): thread (ty, tx) = (tid / 16, tid % 16) of 256 owns
+// rows 4·ty..4·ty+3 and columns tx + 16·j of each 64×64 tile, tiles staged in
+// shared memory as fp32 (100 KB at D=64, 166 KB at D=128 for dk/dv), q
+// pre-scaled by c exactly as the forward's scalar kernel, so p here is that
+// kernel's p.
 //
 // Layout: q, k, v, O, dO and the gradients are [B, S, H, D] views with a
 // contiguous last dim and any batch/sequence/head strides, so the q/k/v
-// thirds of a fused qkv projection (and their gradients) need no copy. The
-// ragged last tiles are masked: padded q rows get p = 0, padded K/V rows are
-// never stored.
-//
-// Shared memory (fp32): dkdv holds K, V, q, dO tiles [64][D+1], p and ds
-// [64][65] and 128 row statistics — 100 KB at D=64, 166 KB at D=128; dq
-// holds q, dO, K, V tiles, ds and the statistics — 83 KB / 149 KB. Opted in
-// above 48 KB with cudaFuncSetAttribute.
+// thirds of a fused qkv projection (and their gradients) need no copy; the
+// bf16 path needs 16-byte aligned bases and strides, which the wrapper
+// ensures.
 //
 // Built by nvcc into a shared library with a plain C entry point
 // (flash_attn_bwd) and bound with ctypes; no PyTorch headers.
@@ -59,27 +89,33 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+
+// The bf16 tiling, chosen by tools/flash_tiling_sweep.py, which builds other
+// values with -D: 16-row bands per warp at D ≤ 64, rows per streamed tile.
+#ifndef FLASH_BWD_BANDS
+#define FLASH_BWD_BANDS 2
+#endif
+#ifndef FLASH_BWD_STREAM
+#define FLASH_BWD_STREAM 32
+#endif
+
 namespace {
 
-constexpr int kBlock = 64;    // rows of a q tile and of a K/V tile
+using fa_mma::bf16;
+
+constexpr int kBlock = 64;    // rows of a q tile and of a K/V tile (fp32)
 constexpr int kThreads = 256;
 constexpr int kRows = 4;      // tile rows per thread
 constexpr int kCols = 4;      // tile columns per thread (strided by 16)
 constexpr int kPStride = kBlock + 1;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // a value rounded to T and back, as `x.astype(T)` before an MXU product
 template <typename T>
@@ -371,42 +407,413 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args<T> a) {
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
+// The bf16 tiling of both passes: 4 warps of kBands 16-row bands each (K/V
+// rows for dk/dv, q rows for dq) share each streamed tile of kStream rows
+// (q/dO for dk/dv, K/V for dq); see the notes at the top.
+template <int D>
+struct MmaTiling {
+  static constexpr int kWarps = 4;
+  static constexpr int kBands = D <= 64 ? FLASH_BWD_BANDS : 1;
+  static constexpr int kRows = kWarps * kBands * 16;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kStream = FLASH_BWD_STREAM;
+  // the block's rows and two buffers of both streamed tiles, bf16 [..][D+8]
+  static constexpr size_t kTiles = sizeof(bf16) * (2 * kRows + 4 * kStream) * (D + 8);
+};
+
+template <int D>
+__global__ void __launch_bounds__(MmaTiling<D>::kThreads) dkdv_mma_kernel(Args<bf16> a) {
+  using namespace fa_mma;
+  using Tiling = MmaTiling<D>;
+  constexpr int kThreadsM = Tiling::kThreads;
+  constexpr int kBands = Tiling::kBands;
+  constexpr int kStride = D + 8;
+  constexpr int kM = Tiling::kStream;  // q rows per streamed tile
+  constexpr int kQTile = kM * kStride;
+  constexpr int kKSteps = D / 16;
+  constexpr int kNTiles = kM / 8;       // n8 tiles of a transposed score band
+  constexpr int kDTiles = D / 8;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + Tiling::kRows * kStride;
+  bf16* Qs = Vs + Tiling::kRows * kStride;  // [2][kM][kStride]
+  bf16* dOs = Qs + 2 * kQTile;              // [2][kM][kStride]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * kQTile);  // [2][kM]
+  float* Dl = Ls + 2 * kM;                                  // [2][kM]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3;
+  const int n0 = blockIdx.x * Tiling::kRows;
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int seq = a.seq;
+  const bf16* qb = a.q + batch * a.qs.b + head * a.qs.h;
+  const bf16* gb = a.dout + batch * a.dos.b + head * a.dos.h;
+  const int64_t stat0 = (static_cast<int64_t>(batch) * a.heads + head) * seq;
+  const float* lse = a.lse + stat0;
+  const float* delta = a.delta + stat0;
+
+  load_rows<D, Tiling::kRows, kThreadsM>(Ks, a.k + batch * a.ks.b + head * a.ks.h, a.ks.s, n0, seq);
+  load_rows<D, Tiling::kRows, kThreadsM>(Vs, a.v + batch * a.vs.b + head * a.vs.h, a.vs.s, n0, seq);
+  load_rows<D, kM, kThreadsM>(Qs, qb, a.qs.s, 0, seq);
+  load_rows<D, kM, kThreadsM>(dOs, gb, a.dos.s, 0, seq);
+  load_stats<kM, kThreadsM>(Ls, lse, 0, seq);
+  load_stats<kM, kThreadsM>(Dl, delta, 0, seq);
+  cp_async_commit();
+
+  float dk[kBands][kDTiles][4], dv[kBands][kDTiles][4];
+#pragma unroll
+  for (int i = 0; i < kBands; ++i)
+#pragma unroll
+    for (int d = 0; d < kDTiles; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][d][e] = dv[i][d][e] = 0.f;
+
+  const int m_tiles = (seq + kM - 1) / kM;
+  for (int j = 0; j < m_tiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < m_tiles) {  // the next tile's copy runs under this tile's work
+      const int m1 = (j + 1) * kM;
+      load_rows<D, kM, kThreadsM>(Qs + (buf ^ 1) * kQTile, qb, a.qs.s, m1, seq);
+      load_rows<D, kM, kThreadsM>(dOs + (buf ^ 1) * kQTile, gb, a.dos.s, m1, seq);
+      load_stats<kM, kThreadsM>(Ls + (buf ^ 1) * kM, lse, m1, seq);
+      load_stats<kM, kThreadsM>(Dl + (buf ^ 1) * kM, delta, m1, seq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qt = Qs + buf * kQTile;
+    const bf16* dOt = dOs + buf * kQTile;
+    const float* Lt = Ls + buf * kM;
+    const float* Dt = Dl + buf * kM;
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: this warp's K/V rows by the tile's q rows.
+    // K and V, the A operands, are read from shared memory at each k step:
+    // held in registers for the whole sweep, with two bands' dk/dv sums,
+    // they would pass 255 registers.
+    float st[kBands][kNTiles][4], dpt[kBands][kNTiles][4];
+#pragma unroll
+    for (int i = 0; i < kBands; ++i)
+#pragma unroll
+      for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[i][n][e] = dpt[i][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t ka[kBands][4], va[kBands][4];
+#pragma unroll
+      for (int i = 0; i < kBands; ++i) {
+        ldmatrix_x4(ka[i], a_ptr(Ks, kStride, (warp * kBands + i) * 16, kk * 16, lane));
+        ldmatrix_x4(va[i], a_ptr(Vs, kStride, (warp * kBands + i) * 16, kk * 16, lane));
+      }
+#pragma unroll
+      for (int np = 0; np < kNTiles / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_ptr_nk(Qt, kStride, np * 16, kk * 16, lane));
+#pragma unroll
+        for (int i = 0; i < kBands; ++i) {
+          mma(st[i][2 * np], ka[i], b[0], b[1]);
+          mma(st[i][2 * np + 1], ka[i], b[2], b[3]);
+        }
+        ldmatrix_x4(b, b_ptr_nk(dOt, kStride, np * 16, kk * 16, lane));
+#pragma unroll
+        for (int i = 0; i < kBands; ++i) {
+          mma(dpt[i][2 * np], va[i], b[0], b[1]);
+          mma(dpt[i][2 * np + 1], va[i], b[2], b[3]);
+        }
+      }
+    }
+
+    // Pᵀ and dSᵀ in place; element e of tile n is q row n·8 + 2t + e % 2
+    const int m0 = j * kM;
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * t + (e & 1);
+        const bool in = m0 + c < seq;
+#pragma unroll
+        for (int i = 0; i < kBands; ++i) {
+          const float p = in ? exp2_approx(fmaf(st[i][n][e], a.scale_log2e, -Lt[c])) : 0.f;
+          st[i][n][e] = p;
+          dpt[i][n][e] = p * (dpt[i][n][e] - Dt[c]);
+        }
+      }
+
+    // dV += bf16(Pᵀ)·dO and dK += bf16(dSᵀ)·Q over the tile's q rows
+#pragma unroll
+    for (int kk = 0; kk < kM / 16; ++kk) {
+      uint32_t pa[kBands][4], da[kBands][4];
+#pragma unroll
+      for (int i = 0; i < kBands; ++i) {
+        pack_a(pa[i], st[i][2 * kk], st[i][2 * kk + 1]);
+        pack_a(da[i], dpt[i][2 * kk], dpt[i][2 * kk + 1]);
+      }
+#pragma unroll
+      for (int dn = 0; dn < kDTiles / 2; ++dn) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, b_ptr_kn(dOt, kStride, kk * 16, dn * 16, lane));
+#pragma unroll
+        for (int i = 0; i < kBands; ++i) {
+          mma(dv[i][2 * dn], pa[i], b[0], b[1]);
+          mma(dv[i][2 * dn + 1], pa[i], b[2], b[3]);
+        }
+        ldmatrix_x4_trans(b, b_ptr_kn(Qt, kStride, kk * 16, dn * 16, lane));
+#pragma unroll
+        for (int i = 0; i < kBands; ++i) {
+          mma(dk[i][2 * dn], da[i], b[0], b[1]);
+          mma(dk[i][2 * dn + 1], da[i], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is refilled on the next iteration
+  }
+
+  bf16* dkb = a.dk + batch * a.dks.b + head * a.dks.h;
+  bf16* dvb = a.dv + batch * a.dvs.b + head * a.dvs.h;
+#pragma unroll
+  for (int i = 0; i < kBands; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = n0 + (warp * kBands + i) * 16 + (lane >> 2) + 8 * r;
+      if (row >= seq) continue;
+#pragma unroll
+      for (int d = 0; d < kDTiles; ++d) {
+        const int col = d * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(dkb + row * a.dks.s + col) =
+            pack_bf16(dk[i][d][2 * r] * a.scale, dk[i][d][2 * r + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvb + row * a.dvs.s + col) =
+            pack_bf16(dv[i][d][2 * r], dv[i][d][2 * r + 1]);
+      }
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MmaTiling<D>::kThreads) dq_mma_kernel(Args<bf16> a) {
+  using namespace fa_mma;
+  using Tiling = MmaTiling<D>;
+  constexpr int kThreadsM = Tiling::kThreads;
+  constexpr int kBands = Tiling::kBands;
+  constexpr int kStride = D + 8;
+  constexpr int kN = Tiling::kStream;  // K/V rows per streamed tile
+  constexpr int kKVTile = kN * kStride;
+  constexpr int kKSteps = D / 16;
+  constexpr int kNTiles = kN / 8;
+  constexpr int kDTiles = D / 8;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + Tiling::kRows * kStride;
+  bf16* Ks = dOs + Tiling::kRows * kStride;  // [2][kN][kStride]
+  bf16* Vs = Ks + 2 * kKVTile;               // [2][kN][kStride]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3;
+  const int m0 = blockIdx.x * Tiling::kRows;
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int seq = a.seq;
+  const bf16* kb = a.k + batch * a.ks.b + head * a.ks.h;
+  const bf16* vb = a.v + batch * a.vs.b + head * a.vs.h;
+  const int64_t stat0 = (static_cast<int64_t>(batch) * a.heads + head) * seq;
+
+  load_rows<D, Tiling::kRows, kThreadsM>(Qs, a.q + batch * a.qs.b + head * a.qs.h, a.qs.s, m0, seq);
+  load_rows<D, Tiling::kRows, kThreadsM>(dOs, a.dout + batch * a.dos.b + head * a.dos.h, a.dos.s, m0, seq);
+  load_rows<D, kN, kThreadsM>(Ks, kb, a.ks.s, 0, seq);
+  load_rows<D, kN, kThreadsM>(Vs, vb, a.vs.s, 0, seq);
+  cp_async_commit();
+
+  // rows g and g + 8 of each of this warp's bands, and their statistics
+  float lse[kBands][2], delta[kBands][2];
+#pragma unroll
+  for (int i = 0; i < kBands; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + (warp * kBands + i) * 16 + (lane >> 2) + 8 * r;
+      lse[i][r] = row < seq ? a.lse[stat0 + row] : 0.f;
+      delta[i][r] = row < seq ? a.delta[stat0 + row] : 0.f;
+    }
+
+  uint32_t qf[kBands][kKSteps][4], gf[kBands][kKSteps][4];
+  float dq[kBands][kDTiles][4];
+#pragma unroll
+  for (int i = 0; i < kBands; ++i)
+#pragma unroll
+    for (int d = 0; d < kDTiles; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[i][d][e] = 0.f;
+
+  const int n_tiles = (seq + kN - 1) / kN;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_tiles) {
+      load_rows<D, kN, kThreadsM>(Ks + (buf ^ 1) * kKVTile, kb, a.ks.s, (j + 1) * kN, seq);
+      load_rows<D, kN, kThreadsM>(Vs + (buf ^ 1) * kKVTile, vb, a.vs.s, (j + 1) * kN, seq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int i = 0; i < kBands; ++i)
+#pragma unroll
+        for (int kk = 0; kk < kKSteps; ++kk) {
+          ldmatrix_x4(qf[i][kk], a_ptr(Qs, kStride, (warp * kBands + i) * 16, kk * 16, lane));
+          ldmatrix_x4(gf[i][kk], a_ptr(dOs, kStride, (warp * kBands + i) * 16, kk * 16, lane));
+        }
+    }
+    const bf16* Kt = Ks + buf * kKVTile;
+    const bf16* Vt = Vs + buf * kKVTile;
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ for this warp's q rows
+    float s[kBands][kNTiles][4], dp[kBands][kNTiles][4];
+#pragma unroll
+    for (int i = 0; i < kBands; ++i)
+#pragma unroll
+      for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][n][e] = dp[i][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+      for (int np = 0; np < kNTiles / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_ptr_nk(Kt, kStride, np * 16, kk * 16, lane));
+#pragma unroll
+        for (int i = 0; i < kBands; ++i) {
+          mma(s[i][2 * np], qf[i][kk], b[0], b[1]);
+          mma(s[i][2 * np + 1], qf[i][kk], b[2], b[3]);
+        }
+        ldmatrix_x4(b, b_ptr_nk(Vt, kStride, np * 16, kk * 16, lane));
+#pragma unroll
+        for (int i = 0; i < kBands; ++i) {
+          mma(dp[i][2 * np], gf[i][kk], b[0], b[1]);
+          mma(dp[i][2 * np + 1], gf[i][kk], b[2], b[3]);
+        }
+      }
+
+    // dS in place of S; element e of tile n is K/V row n0 + n·8 + 2t + e % 2
+    const int n0 = j * kN;
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = n0 + n * 8 + 2 * t + (e & 1) < seq;
+#pragma unroll
+        for (int i = 0; i < kBands; ++i) {
+          const int r = e >> 1;
+          const float p = in ? exp2_approx(fmaf(s[i][n][e], a.scale_log2e, -lse[i][r])) : 0.f;
+          s[i][n][e] = p * (dp[i][n][e] - delta[i][r]);
+        }
+      }
+
+    // dQ += bf16(dS)·K over the tile's K rows
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      uint32_t da[kBands][4];
+#pragma unroll
+      for (int i = 0; i < kBands; ++i) pack_a(da[i], s[i][2 * kk], s[i][2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < kDTiles / 2; ++dn) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, b_ptr_kn(Kt, kStride, kk * 16, dn * 16, lane));
+#pragma unroll
+        for (int i = 0; i < kBands; ++i) {
+          mma(dq[i][2 * dn], da[i], b[0], b[1]);
+          mma(dq[i][2 * dn + 1], da[i], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is refilled on the next iteration
+  }
+
+  bf16* dqb = a.dq + batch * a.dqs.b + head * a.dqs.h;
+#pragma unroll
+  for (int i = 0; i < kBands; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + (warp * kBands + i) * 16 + (lane >> 2) + 8 * r;
+      if (row >= seq) continue;
+#pragma unroll
+      for (int d = 0; d < kDTiles; ++d)
+        *reinterpret_cast<uint32_t*>(dqb + row * a.dqs.s + d * 8 + 2 * t) =
+            pack_bf16(dq[i][d][2 * r] * a.scale, dq[i][d][2 * r + 1] * a.scale);
+    }
+}
+
+// δ for bf16: D/8 lanes per score row, each with one 16-byte load of O and
+// of dO (the wrapper hands the bf16 kernels 16-byte aligned rows)
+template <int D>
+__global__ void __launch_bounds__(kThreads) delta_bf16_kernel(Args<bf16> a) {
+  constexpr int kLanes = D / 8;
   const int64_t rows = static_cast<int64_t>(a.batch) * a.heads * a.seq;
-  const int64_t delta_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-  if (delta_blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  delta_kernel<T, D><<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / kLanes) + threadIdx.x / kLanes;
+  const int part = threadIdx.x % kLanes;
+  float acc = 0.f;
+  if (row < rows) {
+    const int s = static_cast<int>(row % a.seq);
+    const int h = static_cast<int>((row / a.seq) % a.heads);
+    const int b = static_cast<int>(row / (static_cast<int64_t>(a.seq) * a.heads));
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        a.o + b * a.os.b + h * a.os.h + s * a.os.s + part * 8);
+    const uint4 gv = *reinterpret_cast<const uint4*>(
+        a.dout + b * a.dos.b + h * a.dos.h + s * a.dos.s + part * 8);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]), gf = __bfloat1622float2(g2[i]);
+      acc = fmaf(gf.x, of.x, acc);
+      acc = fmaf(gf.y, of.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0 && row < rows) a.delta[row] = acc;
+}
 
-  const dim3 grid((a.seq + kBlock - 1) / kBlock, a.heads, a.batch);
-  constexpr size_t kv_smem = dkdv_smem_bytes<D>();
-  err = cudaFuncSetAttribute(dkdv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kv_smem));
-  if (err != cudaSuccess) return err;
-  dkdv_kernel<T, D><<<grid, kThreads, kv_smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  constexpr size_t q_smem = dq_smem_bytes<D>();
-  err = cudaFuncSetAttribute(dq_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(q_smem));
-  if (err != cudaSuccess) return err;
-  dq_kernel<T, D><<<grid, kThreads, q_smem, stream>>>(a);
+// one launch of a δ kernel that covers `per_block` score rows per block
+template <typename A>
+cudaError_t launch_delta(void (*kernel)(A), const A& a, int per_block, cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(a.batch) * a.heads * a.seq;
+  const int64_t blocks = (rows + per_block - 1) / per_block;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dim(int dim, const Args<T>& a, cudaStream_t st) {
-  switch (dim) {
-    case 32: return launch<T, 32>(a, st);
-    case 64: return launch<T, 64>(a, st);
-    case 128: return launch<T, 128>(a, st);
-    default: return cudaErrorInvalidValue;
-  }
+template <typename A>
+cudaError_t launch_one(void (*kernel)(A), const A& a, dim3 grid, int threads,
+                       size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const Args<float>& a, cudaStream_t stream) {
+  cudaError_t err = launch_delta(delta_kernel<float, D>, a, kThreads / 32, stream);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.seq + kBlock - 1) / kBlock, a.heads, a.batch);
+  err = launch_one(dkdv_kernel<float, D>, a, grid, kThreads, dkdv_smem_bytes<D>(), stream);
+  if (err != cudaSuccess) return err;
+  return launch_one(dq_kernel<float, D>, a, grid, kThreads, dq_smem_bytes<D>(), stream);
+}
+
+template <int D>
+cudaError_t launch_bf16(const Args<bf16>& a, cudaStream_t stream) {
+  cudaError_t err = launch_delta(delta_bf16_kernel<D>, a, kThreads / (D / 8), stream);
+  if (err != cudaSuccess) return err;
+  using Tiling = MmaTiling<D>;
+  const dim3 grid((a.seq + Tiling::kRows - 1) / Tiling::kRows, a.heads, a.batch);
+  // dk/dv also stage the streamed tiles' lse and δ, [2][kStream] fp32 each
+  err = launch_one(dkdv_mma_kernel<D>, a, grid, Tiling::kThreads,
+                   Tiling::kTiles + sizeof(float) * 4 * Tiling::kStream, stream);
+  if (err != cudaSuccess) return err;
+  return launch_one(dq_mma_kernel<D>, a, grid, Tiling::kThreads, Tiling::kTiles, stream);
 }
 
 template <typename T>
@@ -423,17 +830,31 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* o,
             strides(0), strides(1), strides(2), strides(3), strides(4),
             strides(5), strides(6), strides(7),
             batch, seq, heads, scale, scale_log2e};
-  return dispatch_dim<T>(dim, a, stream);
+  if constexpr (sizeof(T) == sizeof(float)) {
+    switch (dim) {
+      case 32: return launch_f32<32>(a, stream);
+      case 64: return launch_f32<64>(a, stream);
+      case 128: return launch_f32<128>(a, stream);
+    }
+  } else {
+    switch (dim) {
+      case 32: return launch_bf16<32>(a, stream);
+      case 64: return launch_bf16<64>(a, stream);
+      case 128: return launch_bf16<128>(a, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. `strides` holds 24 element strides, the
-// (batch, seq, head) strides of q, k, v, o, dout, dq, dk, dv in that order.
-// `lse` is the forward's contiguous fp32 [batch, heads, seq]; `delta` is
-// scratch of the same shape. Returns the first failing launch's cudaError_t
-// (0 = all three launched); the kernels' own faults show at the next
-// synchronisation.
+// (batch, seq, head) strides of q, k, v, o, dout, dq, dk, dv in that order;
+// for bfloat16 the base pointers must be 16-byte aligned and the strides
+// multiples of 8. `lse` is the forward's contiguous fp32 [batch, heads, seq];
+// `delta` is scratch of the same shape. Returns the first failing launch's
+// cudaError_t (0 = all three launched); the kernels' own faults show at the
+// next synchronisation.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const float* lse, float* delta, void* dq,
@@ -449,8 +870,8 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
     err = run<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, seq, heads,
                      dim, strides, scale, scale_log2e, st);
   else if (dtype == 1)
-    err = run<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch,
-                             seq, heads, dim, strides, scale, scale_log2e, st);
+    err = run<bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, seq, heads,
+                    dim, strides, scale, scale_log2e, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

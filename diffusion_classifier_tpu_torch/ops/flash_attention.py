@@ -4,7 +4,7 @@ Port of ``diffusion_classifier_tpu/ops/flash_attention.py``. The TPU file has
 two forward kernels, ``_flash_fused_heads`` (``:123``) and ``_flash_bh``
 (``:154``), and a backward ``_flash_bwd`` (``:304``) in two layouts
 (``_bwd_kernel_lanes`` ``:244`` and ``_bwd_kernel_bh`` ``:264``). Hopper needs
-no layout split: one CUDA kernel per direction computes each for every shape
+no layout split: one CUDA source per direction computes each for every shape
 :func:`supports` admits.
 
 - ``csrc/flash_attn_fwd.cu`` — the forward, online softmax over streamed K/V
@@ -13,9 +13,10 @@ no layout split: one CUDA kernel per direction computes each for every shape
   then one pass per K/V tile for dk/dv and one per q tile for dq, no atomics.
 
 At the DiT's (16, 1024, 6, 64) both do hundreds of flops per byte moved,
-above the H100's ~295 flop/byte bf16 ridge: they are compute-bound, and
-these first kernels use scalar fp32 FMAs, so the speed work ahead is
-``wgmma`` fed by TMA (the sources say more).
+above the H100's ~295 flop/byte bf16 ridge: they are compute-bound. bf16
+runs on the tensor cores (``mma.sync`` fed by ``ldmatrix`` and ``cp.async``,
+helpers in ``csrc/flash_mma.cuh``); fp32, which has no exact tensor-core
+product, runs on scalar-FMA kernels (the sources say more).
 
 - :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
   — the plain PyTorch versions, op for op like ``_softmax_pv`` and
@@ -28,8 +29,9 @@ these first kernels use scalar fp32 FMAs, so the speed work ahead is
 - ``FLASH_FWD`` / ``FLASH_BWD`` — the kernel objects: each built at first use
   with ``nvcc`` (``-gencode arch=compute_90a,code=sm_90a``) into
   ``build/torch_kernels/<source hash>/``, loaded with ``ctypes``; each
-  ``launches`` counts its wrapper's launches. :func:`build_all` compiles
-  both at once.
+  ``launches`` counts its wrapper's launches, and ``copies`` the bf16 inputs
+  it had to copy because they failed :func:`_aligned16`. :func:`build_all`
+  compiles both at once.
 """
 
 from __future__ import annotations
@@ -77,6 +79,21 @@ def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         return False
     return q.shape[-1] in (32, 64, 128)
+
+
+def _aligned16(x: torch.Tensor) -> bool:
+    """True if the bf16 kernels can read ``x`` with 16-byte ``cp.async`` copies.
+
+    The base address and every batch, sequence and head stride (in bytes)
+    must be multiples of 16; the stride of a dimension of size 1 is never
+    used. The q/k/v thirds of the DiT's fused qkv projection pass.
+    """
+    if x.data_ptr() % 16:
+        return False
+    return all(
+        size == 1 or (stride * x.element_size()) % 16 == 0
+        for size, stride in zip(x.shape[:3], x.stride()[:3])
+    )
 
 
 def flash_attention_reference(
@@ -159,20 +176,41 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One ``csrc/<name>.cu``: built at first use into a ``ctypes`` library, launches counted."""
+    """One ``csrc/<name>.cu``: built at first use into a ``ctypes`` library, launches counted.
 
-    def __init__(self, name: str, argtypes: list):
+    ``defines`` (``"NAME=value"``) go to ``nvcc`` as ``-D`` flags, for a
+    build with other values of a source's compile-time knobs.
+    """
+
+    def __init__(self, name: str, argtypes: list, defines: tuple = ()):
         self.name = name
+        self.flags = (*_NVCC_FLAGS, *(f"-D{d}" for d in defines))
         self.source = os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
         self.launches = 0
+        self.copies = 0
         self.build_log = ""
         self._argtypes = argtypes
         self._lib = None
 
     def library_path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode())
+        """``build/torch_kernels/<hash>/lib<name>.so``, hashed over the source, the headers and the flags."""
+        digest = hashlib.sha256(" ".join(self.flags).encode())
+        csrc = os.path.dirname(self.source)
+        headers = sorted(n for n in os.listdir(csrc) if n.endswith(".cuh"))
+        for path in (self.source, *(os.path.join(csrc, n) for n in headers)):
+            with open(path, "rb") as f:
+                digest.update(f.read())
         return os.path.join(BUILD_ROOT, digest.hexdigest()[:16], f"lib{self.name}.so")
+
+    def _aligned(self, *tensors: torch.Tensor) -> list:
+        """The inputs, each bf16 one that fails :func:`_aligned16` copied (and counted)."""
+        out = []
+        for x in tensors:
+            if x.dtype == torch.bfloat16 and not _aligned16(x):
+                x = torch.empty_like(x, memory_format=torch.contiguous_format).copy_(x)
+                self.copies += 1
+            out.append(x)
+        return out
 
     def _compile(self):
         """Start ``nvcc`` unless this source is built; returns ``(process, tmp_path)`` or None."""
@@ -186,7 +224,7 @@ class CudaKernel:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
         os.close(fd)
         proc = subprocess.Popen(
-            [nvcc, *_NVCC_FLAGS, "-o", tmp, self.source],
+            [nvcc, *self.flags, "-o", tmp, self.source],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         return proc, tmp
@@ -257,13 +295,14 @@ def _check_inputs(tensors: dict, ref: torch.Tensor) -> None:
 class FlashAttentionForward(CudaKernel):
     """The forward kernel; ``lse=True`` also returns the fp32 row logsumexp ``[B, H, S]``."""
 
-    def __init__(self):
+    def __init__(self, defines: tuple = ()):
         super().__init__(
             "flash_attn_fwd",
             [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 5
             + [ctypes.c_int64] * 12
             + [ctypes.c_float, ctypes.c_void_p],
+            defines,
         )
 
     def __call__(self, q, k, v, *, lse: bool = False):
@@ -275,6 +314,7 @@ class FlashAttentionForward(CudaKernel):
                 f"v{tuple(v.shape)}: need equal [B, S, H, D] with D in 32/64/128"
             )
         self.build()
+        q, k, v = self._aligned(q, k, v)
         b, s, h, d = q.shape
         out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
         stats = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if lse else None
@@ -294,12 +334,13 @@ class FlashAttentionForward(CudaKernel):
 class FlashAttentionBackward(CudaKernel):
     """The backward kernel: ``(dq, dk, dv)`` from q, k, v, the output, its gradient and the lse."""
 
-    def __init__(self):
+    def __init__(self, defines: tuple = ()):
         super().__init__(
             "flash_attn_bwd",
             [ctypes.c_void_p] * 10
             + [ctypes.c_int] * 5
             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+            defines,
         )
 
     def __call__(self, q, k, v, o, do, lse):
@@ -319,6 +360,7 @@ class FlashAttentionBackward(CudaKernel):
                 f"{lse.dtype} {tuple(lse.shape)} on {lse.device}"
             )
         self.build()
+        q, k, v, o, do = self._aligned(q, k, v, o, do)
         grads = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v)]
         delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         strides = (ctypes.c_int64 * 24)(

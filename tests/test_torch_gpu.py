@@ -20,12 +20,20 @@ pytestmark = pytest.mark.gpu
 # fp32: the JAX suite's flash tolerance (tests/test_ops.py:66-68); bf16: one
 # bf16 ulp of an O(1) output
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-3), torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# ragged last tiles and odd sequences on the tensor-core (bf16) kernels, at
+# every head dim: chip_smoke.py phases 3 and 6
+BF16_RAGGED = [
+    ((2, 200, 2, 64), torch.bfloat16),
+    ((1, 65, 1, 128), torch.bfloat16),
+    ((3, 77, 2, 32), torch.bfloat16),
+]
 # the backward's shapes: chip_smoke.py phase 6
 BWD_CASES = [
     ((16, 1024, 6, 64), torch.bfloat16),
     ((2, 1024, 6, 64), torch.float32),
     ((1, 512, 3, 128), torch.bfloat16),
     ((2, 200, 2, 32), torch.float32),  # ragged last tiles
+    *BF16_RAGGED,
 ]
 
 
@@ -51,6 +59,8 @@ def _strided_qkv(shape, dtype, gen):
         ((1, 512, 3, 128), torch.bfloat16),
         ((2, 200, 2, 32), torch.float32),
         ((1, 65, 1, 128), torch.float32),
+        ((2, 256, 4, 32), torch.bfloat16),
+        *BF16_RAGGED,
     ],
 )
 def test_kernel_matches_plain_version(cuda, shape, dtype):
@@ -86,8 +96,9 @@ def test_backward_kernel_matches_plain_version(cuda, shape, dtype):
         torch.testing.assert_close(g, w, **TOL[dtype], msg=lambda m: f"{name}: {m}")
 
 
-def test_backward_kernel_is_deterministic(cuda):
-    q, k, v = _strided_qkv((2, 200, 2, 64), torch.bfloat16, cuda)
+@pytest.mark.parametrize("shape", [(2, 200, 2, 64), (16, 1024, 6, 64)])
+def test_backward_kernel_is_deterministic(cuda, shape):
+    q, k, v = _strided_qkv(shape, torch.bfloat16, cuda)
     do = torch.randn(q.shape, generator=cuda, device="cuda").to(q.dtype)
     out, lse = fa.FLASH_FWD(q, k, v, lse=True)
     first = fa.FLASH_BWD(q, k, v, out, do, lse)
@@ -111,6 +122,23 @@ def test_function_gradients_match_plain_autograd(cuda, shape, dtype):
         grads.append(x.grad)
     # the fused qkv tensor gets the three thirds' gradients side by side
     torch.testing.assert_close(grads[0], grads[1], **TOL[dtype])
+
+
+def test_unaligned_bf16_view_is_copied_not_refused(cuda):
+    b, s, h, d = 2, 200, 2, 64
+    flat = torch.randn(b * s * h * d + 1, generator=cuda, device="cuda").to(torch.bfloat16)
+    q = flat[1:].view(b, s, h, d)  # 2 bytes past a 16-byte boundary
+    k, v = _strided_qkv((b, s, h, d), torch.bfloat16, cuda)[1:]
+    assert not fa._aligned16(q) and fa._aligned16(k) and fa._aligned16(v)
+    do = torch.randn(q.shape, generator=cuda, device="cuda").to(q.dtype)
+    before = fa.FLASH_FWD.copies, fa.FLASH_BWD.copies
+    out, lse = fa.FLASH_FWD(q, k, v, lse=True)
+    grads = fa.FLASH_BWD(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    assert (fa.FLASH_FWD.copies - before[0], fa.FLASH_BWD.copies - before[1]) == (1, 1)
+    torch.testing.assert_close(out, fa.flash_attention_reference(q, k, v), **TOL[q.dtype])
+    for name, g, w in zip(("dq", "dk", "dv"), grads, fa.flash_attention_bwd_reference(q, k, v, do, out)):
+        torch.testing.assert_close(g, w, **TOL[q.dtype], msg=lambda m: f"{name}: {m}")
 
 
 def test_dispatcher_routes_cuda_tensors_to_the_kernel(cuda):

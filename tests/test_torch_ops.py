@@ -141,12 +141,79 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) == before
 
 
+def _scale_after_product(q, k, v, do):
+    """The plain forward and backward with ``c`` applied to the fp32 product ``q·kᵀ``.
+
+    The bf16 kernels feed bf16 q and k to the tensor cores and scale the fp32
+    accumulator, where the plain versions scale q in fp32 before the product.
+    """
+    d = q.shape[-1]
+    scale = 1.0 / d**0.5
+    qf, kf, vf, dof = (x.to(torch.float32).transpose(1, 2) for x in (q, k, v, do))
+    s = (qf @ kf.transpose(-1, -2)) * (scale * fa._LOG2_E)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = (p.to(v.dtype).to(torch.float32) @ vf) / l
+    out = o.transpose(1, 2).to(q.dtype)
+    p = p / l
+    dv = p.to(do.dtype).to(torch.float32).transpose(-1, -2) @ dof
+    delta = (dof * out.to(torch.float32).transpose(1, 2)).sum(dim=-1, keepdim=True)
+    ds = (p * (dof @ vf.transpose(-1, -2) - delta)).to(q.dtype).to(torch.float32)
+    grads = ((ds @ kf) * scale, (ds.transpose(-1, -2) @ qf) * scale, dv)
+    return out, tuple(g.transpose(1, 2).to(q.dtype) for g in grads)
+
+
+# The kernels' reordering (scale after the product) stays inside the
+# tolerances the card's tests hold them to: fp32 atol 2e-5 / rtol 2e-3, bf16
+# atol 2e-2 / rtol 2e-2.
+@pytest.mark.parametrize(
+    "dtype,tol",
+    [(torch.float32, dict(atol=2e-5, rtol=2e-3)), (torch.bfloat16, dict(atol=2e-2, rtol=2e-2))],
+)
+def test_scale_after_product_is_within_the_kernel_tolerance(dtype, tol):
+    shape = (2, 200, 2, 64)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(shape, seed=5))
+    do = torch.from_numpy(np.random.default_rng(6).standard_normal(shape).astype(np.float32)).to(dtype)
+    out, grads = _scale_after_product(q, k, v, do)
+    want = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(out, want, **tol)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, fa.flash_attention_bwd_reference(q, k, v, do, want)):
+        torch.testing.assert_close(g, w, **tol, msg=lambda m: f"{name}: {m}")
+
+
+def test_aligned16_passes_the_qkv_thirds_and_fails_an_offset_view():
+    b, s, h, d = 2, 16, 2, 64
+    qkv = torch.zeros((b, s, 3 * h * d), dtype=torch.bfloat16)
+    assert all(fa._aligned16(x.view(b, s, h, d)) for x in qkv.split(h * d, dim=-1))
+    assert not fa._aligned16(qkv[..., 1 : 1 + h * d].view(b, s, h, d))  # 2 bytes off
+    assert not fa._aligned16(qkv[:, :, : h * d - 8].unflatten(-1, (h, d - 4)))  # head stride 60
+    assert fa._aligned16(qkv[:1, :1, : h * d].reshape(1, 1, h, d))
+
+
+def test_library_path_hashes_the_shared_header(tmp_path):
+    kernel = fa.CudaKernel("flash_attn_fwd", [])
+    kernel.source = str(tmp_path / "flash_attn_fwd.cu")
+    (tmp_path / "flash_attn_fwd.cu").write_text("// kernel\n")
+    (tmp_path / "flash_mma.cuh").write_text("// helpers\n")
+    first = kernel.library_path()
+    assert first == kernel.library_path() and first.endswith("libflash_attn_fwd.so")
+    (tmp_path / "flash_mma.cuh").write_text("// helpers, edited\n")
+    assert kernel.library_path() != first  # an edited header rebuilds
+
+
+def test_defines_reach_nvcc_and_the_build_hash():
+    kernel = fa.FlashAttentionForward(("FLASH_FWD_WARPS=4",))
+    assert kernel.flags[-1] == "-DFLASH_FWD_WARPS=4" and kernel.flags[:-1] == fa.FLASH_FWD.flags
+    assert kernel.library_path() != fa.FLASH_FWD.library_path()  # its own build
+
+
 def test_kernel_module_imports_without_nvcc():
     code = (
         "import os, sys; os.environ['PATH'] = ''; os.environ.pop('CUDA_HOME', None); "
         "import diffusion_classifier_tpu_torch.ops.flash_attention as m; "
         "assert m.FLASH_FWD._lib is None and m.FLASH_FWD.launches == 0; "
         "assert m.FLASH_BWD._lib is None and m.FLASH_BWD.launches == 0; "
+        "assert m.FLASH_FWD.copies == 0 and m.FLASH_BWD.copies == 0; "
         "assert 'jax' not in sys.modules"
     )
     proc = subprocess.run(
