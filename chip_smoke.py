@@ -19,15 +19,17 @@ through ``experiments/chexpert-dit/train_torch.py``. Phases:
 3. forward kernel vs its plain PyTorch version on the card at the main
    path's shapes, strided q/k/v thirds and ragged and odd sequences in both
    dtypes included, with timings (plain; kernel and SDPA as a yardstick in
-   turns: kernel, SDPA, SDPA, kernel, each run 10 calls back to back) and
-   the bound;
+   turns: kernel, SDPA, SDPA, kernel, each run 10 calls back to back, and
+   again of single calls, which also count the wrapper's host time; the
+   host microseconds of one wrapper call) and the bound;
 4. the full-width DiT-b4 forward with the kernel vs with the plain
    attention on the same weights: relative L2 ≤ 1e-2, 12 launches;
 5. the classify entry point: a seeded checkpoint, ``inference_torch.main()``
    with launch counts and no alignment copy, then classify throughput at
    B=16 and latency at B=1, each with a profiler table;
 6. backward kernel vs its plain version at the same kind of shapes, with
-   timings (plain; kernel and SDPA's backward in turns) and the bound;
+   timings (plain; kernel and SDPA's backward in turns, back to back and
+   single calls; host microseconds per call) and the bound;
 7. full-width DiT-b4 gradients at B=16, kernels vs plain attention on the
    same weights and draws: relative L2 ≤ 2e-2, 12 + 12 launches;
 8. the training entry point: ``train_torch.main()`` for one epoch (16 steps
@@ -145,12 +147,32 @@ def cuda_ms(fn, reps=20, warmup=3, inner=1):
     return statistics.median(cuda_times(fn, reps, warmup, inner))
 
 
-def in_turns(kernel_fn, library_fn, reps=TURN_REPS):
+def in_turns(kernel_fn, library_fn, reps=TURN_REPS, inner=BACK_TO_BACK):
     """``(kernel_ms, library_ms)``: medians over turns kernel, library, library, kernel."""
     times = {kernel_fn: [], library_fn: []}
     for fn in (kernel_fn, library_fn, library_fn, kernel_fn):
-        times[fn] += cuda_times(fn, reps, inner=BACK_TO_BACK)
+        times[fn] += cuda_times(fn, reps, inner=inner)
     return statistics.median(times[kernel_fn]), statistics.median(times[library_fn])
+
+
+def timed_in_turns(record, kernel_fn, library_fn):
+    """Fill ``record`` with the kernel's and the library call's times, device and host.
+
+    ``ms``/``library_ms``: runs of back-to-back calls, which hide the host's
+    work between launches; ``call_ms``/``library_call_ms``: single calls, the
+    way PRs 1-2 timed, which count it; ``host_us``: the host's microseconds
+    per wrapper call, enqueued while the card runs behind.
+    """
+    record["ms"], record["library_ms"] = in_turns(kernel_fn, library_fn)
+    record["call_ms"], record["library_call_ms"] = in_turns(kernel_fn, library_fn, inner=1)
+    record["library_ratio"] = record["ms"] / record["library_ms"]
+    kernel_fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(TURN_REPS):
+        kernel_fn()
+    record["host_us"] = (time.perf_counter() - start) / TURN_REPS * 1e6
+    torch.cuda.synchronize()
 
 
 def bound(flops, nbytes, dtype):
@@ -224,7 +246,7 @@ def phase_device():
 
 def entry_name(text):
     """``"dkdv bf16 D=64"`` for a mangled kernel name in ``text``; ``text`` if none."""
-    match = re.search(r"(flash_fwd|delta|dkdv|dq)(_mma|_bf16)?_kernelI(13__nv_bfloat16|f)?Li(\d+)E", text)
+    match = re.search(r"(flash_fwd|delta|dkdv|dq)(_mma)?_kernelI(13__nv_bfloat16|f)?Li(\d+)E", text)
     if not match:
         return text.strip()
     name, mma, dtype, dim = match.groups()
@@ -294,15 +316,14 @@ def phase_kernel(fa):
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             record["max_abs_err"] = err
             record["plain_ms"] = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
-            record["ms"], record["library_ms"] = in_turns(
-                lambda: fa.FLASH_FWD(q, k, v), lambda: F.scaled_dot_product_attention(qh, kh, vh)
+            timed_in_turns(
+                record, lambda: fa.FLASH_FWD(q, k, v), lambda: F.scaled_dot_product_attention(qh, kh, vh)
             )
             lse_ms = cuda_ms(lambda: fa.FLASH_FWD(q, k, v, lse=True), reps=TURN_REPS, inner=BACK_TO_BACK)
-            record["library_ratio"] = record["ms"] / record["library_ms"]
             record["bound_ms"], record["bound_by"] = bound(
                 4 * b * h * s * s * d, 4 * q.numel() * q.element_size(), dtype
             )
-            print(f"[3 kernel] {shape} bf16 median: kernel {record['ms']:.4f} ms (with lse {lse_ms:.4f} ms), plain {record['plain_ms']:.4f} ms; in turns of {TURN_REPS} (kernel, SDPA, SDPA, kernel): kernel {record['ms']:.4f} ms, SDPA {record['library_ms']:.4f} ms, kernel/SDPA {record['library_ratio']:.3f}; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
+            print(f"[3 kernel] {shape} bf16 median: kernel {record['ms']:.4f} ms (with lse {lse_ms:.4f} ms), plain {record['plain_ms']:.4f} ms; in turns of {TURN_REPS} (kernel, SDPA, SDPA, kernel): kernel {record['ms']:.4f} ms, SDPA {record['library_ms']:.4f} ms, kernel/SDPA {record['library_ratio']:.3f}; single calls: kernel {record['call_ms']:.4f} ms, SDPA {record['library_call_ms']:.4f} ms; host {record['host_us']:.1f} us per wrapper call; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
     return record
 
 
@@ -331,15 +352,15 @@ def phase_backward(fa):
             qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
             oh = F.scaled_dot_product_attention(qh, kh, vh)
             doh = do.transpose(1, 2).contiguous()
-            record["ms"], record["library_ms"] = in_turns(
+            timed_in_turns(
+                record,
                 lambda: fa.FLASH_BWD(q, k, v, out, do, lse),
                 lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True),
             )
-            record["library_ratio"] = record["ms"] / record["library_ms"]
             # in: q, k, v, o, dO and the fp32 lse; out: dq, dk, dv
             nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
             record["bound_ms"], record["bound_by"] = bound(10 * b * h * s * s * d, nbytes, dtype)
-            print(f"[6 backward] {shape} bf16 median: plain {record['plain_ms']:.4f} ms; in turns of {TURN_REPS} (kernel, SDPA, SDPA, kernel): kernel {record['ms']:.4f} ms, SDPA backward {record['library_ms']:.4f} ms, kernel/SDPA {record['library_ratio']:.3f}; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
+            print(f"[6 backward] {shape} bf16 median: plain {record['plain_ms']:.4f} ms; in turns of {TURN_REPS} (kernel, SDPA, SDPA, kernel): kernel {record['ms']:.4f} ms, SDPA backward {record['library_ms']:.4f} ms, kernel/SDPA {record['library_ratio']:.3f}; single calls: kernel {record['call_ms']:.4f} ms, SDPA backward {record['library_call_ms']:.4f} ms; host {record['host_us']:.1f} us per wrapper call; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
     return record
 
 
@@ -572,7 +593,7 @@ def main() -> int:
             "launches_by_path": launches[name],
             **{key: records[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "library_ratio")},
+                "library_ratio", "call_ms", "library_call_ms", "host_us")},
             "hmma": hmma[name],
         }
         for name, (source, replaces) in KERNELS.items()

@@ -19,8 +19,8 @@
 // the FA2 design in three launches, with no S limit and no atomics (the
 // gradients are the same bits from run to run):
 //
-//   1. δ = rowsum(dO ∘ O) in fp32 (delta_bf16_kernel: D/8 lanes per score
-//      row with 16-byte loads; delta_kernel, fp32: one warp per row);
+//   1. δ = rowsum(dO ∘ O) in fp32, one warp per score row (delta_kernel,
+//      both dtypes: it is memory-bound and small);
 //   2. dk/dv: one block per (K/V tile, head, batch) streaming q/dO;
 //   3. dq: one block per (q tile, head, batch) streaming K/V; it
 //      recomputes s and dp (14 rather than 10 S²·D flops per head), which
@@ -37,8 +37,8 @@
 // D = 128, register budget): with one band, one `ldmatrix` fed two `mma`s and
 // shared-memory reads set the pace; two bands double the products per read.
 // The streamed tiles are 32 rows and ride a two-deep `cp.async` ring (the
-// next tile's copy runs under this tile's products). tools/flash_tiling_sweep.py
-// times the other tilings.
+// next tile's copy runs under this tile's products). The tiling was chosen
+// by timing the alternatives on the card (PERF.md, PR 3's tilings table).
 //
 // dkdv_mma_kernel: K/V rows are the M dimension. The q/dO tiles stream with
 // their lse and δ, and the tiles are computed transposed: Sᵀ = K·Qᵀ and
@@ -91,15 +91,6 @@
 
 #include "flash_mma.cuh"
 
-// The bf16 tiling, chosen by tools/flash_tiling_sweep.py, which builds other
-// values with -D: 16-row bands per warp at D ≤ 64, rows per streamed tile.
-#ifndef FLASH_BWD_BANDS
-#define FLASH_BWD_BANDS 2
-#endif
-#ifndef FLASH_BWD_STREAM
-#define FLASH_BWD_STREAM 32
-#endif
-
 namespace {
 
 using fa_mma::bf16;
@@ -111,6 +102,7 @@ constexpr int kCols = 4;      // tile columns per thread (strided by 16)
 constexpr int kPStride = kBlock + 1;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -413,10 +405,11 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args<T> a) {
 template <int D>
 struct MmaTiling {
   static constexpr int kWarps = 4;
-  static constexpr int kBands = D <= 64 ? FLASH_BWD_BANDS : 1;
+  static constexpr int kBands = D <= 64 ? 2 : 1;
   static constexpr int kRows = kWarps * kBands * 16;
   static constexpr int kThreads = kWarps * 32;
-  static constexpr int kStream = FLASH_BWD_STREAM;
+  static constexpr int kStream = 32;
+  static_assert(kStream % 16 == 0, "the streamed rows are a k16 step of dV, dK and dQ");
   // the block's rows and two buffers of both streamed tiles, bf16 [..][D+8]
   static constexpr size_t kTiles = sizeof(bf16) * (2 * kRows + 4 * kStream) * (D + 8);
 };
@@ -742,44 +735,13 @@ __global__ void __launch_bounds__(MmaTiling<D>::kThreads) dq_mma_kernel(Args<bf1
     }
 }
 
-// δ for bf16: D/8 lanes per score row, each with one 16-byte load of O and
-// of dO (the wrapper hands the bf16 kernels 16-byte aligned rows)
-template <int D>
-__global__ void __launch_bounds__(kThreads) delta_bf16_kernel(Args<bf16> a) {
-  constexpr int kLanes = D / 8;
+// δ, one warp per score row
+template <typename T, int D>
+cudaError_t launch_delta(const Args<T>& a, cudaStream_t stream) {
   const int64_t rows = static_cast<int64_t>(a.batch) * a.heads * a.seq;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / kLanes) + threadIdx.x / kLanes;
-  const int part = threadIdx.x % kLanes;
-  float acc = 0.f;
-  if (row < rows) {
-    const int s = static_cast<int>(row % a.seq);
-    const int h = static_cast<int>((row / a.seq) % a.heads);
-    const int b = static_cast<int>(row / (static_cast<int64_t>(a.seq) * a.heads));
-    const uint4 ov = *reinterpret_cast<const uint4*>(
-        a.o + b * a.os.b + h * a.os.h + s * a.os.s + part * 8);
-    const uint4 gv = *reinterpret_cast<const uint4*>(
-        a.dout + b * a.dos.b + h * a.dos.h + s * a.dos.s + part * 8);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 of = __bfloat1622float2(o2[i]), gf = __bfloat1622float2(g2[i]);
-      acc = fmaf(gf.x, of.x, acc);
-      acc = fmaf(gf.y, of.y, acc);
-    }
-  }
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (part == 0 && row < rows) a.delta[row] = acc;
-}
-
-// one launch of a δ kernel that covers `per_block` score rows per block
-template <typename A>
-cudaError_t launch_delta(void (*kernel)(A), const A& a, int per_block, cudaStream_t stream) {
-  const int64_t rows = static_cast<int64_t>(a.batch) * a.heads * a.seq;
-  const int64_t blocks = (rows + per_block - 1) / per_block;
+  const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
+  delta_kernel<T, D><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -795,7 +757,7 @@ cudaError_t launch_one(void (*kernel)(A), const A& a, dim3 grid, int threads,
 
 template <int D>
 cudaError_t launch_f32(const Args<float>& a, cudaStream_t stream) {
-  cudaError_t err = launch_delta(delta_kernel<float, D>, a, kThreads / 32, stream);
+  cudaError_t err = launch_delta<float, D>(a, stream);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq + kBlock - 1) / kBlock, a.heads, a.batch);
   err = launch_one(dkdv_kernel<float, D>, a, grid, kThreads, dkdv_smem_bytes<D>(), stream);
@@ -805,7 +767,7 @@ cudaError_t launch_f32(const Args<float>& a, cudaStream_t stream) {
 
 template <int D>
 cudaError_t launch_bf16(const Args<bf16>& a, cudaStream_t stream) {
-  cudaError_t err = launch_delta(delta_bf16_kernel<D>, a, kThreads / (D / 8), stream);
+  cudaError_t err = launch_delta<bf16, D>(a, stream);
   if (err != cudaSuccess) return err;
   using Tiling = MmaTiling<D>;
   const dim3 grid((a.seq + Tiling::kRows - 1) / Tiling::kRows, a.heads, a.batch);

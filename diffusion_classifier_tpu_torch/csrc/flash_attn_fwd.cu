@@ -36,7 +36,8 @@
 // published rates an SM does 16 exp2 a clock against ~4096 bf16 tensor-core
 // flops, so at D = 64 a score's exp2 costs about what its 256 flops do). p goes from the S accumulators, packed to
 // bf16, straight into the A fragment of P·V: scores and probabilities never
-// touch shared memory. tools/flash_tiling_sweep.py times the other tilings.
+// touch shared memory. The tiling was chosen by timing the alternatives on
+// the card (PERF.md, PR 3's tilings table).
 //
 // Where the bf16 arithmetic differs from `_softmax_pv`: tensor-core operands
 // are bf16, so c multiplies the fp32 accumulator after the product instead of
@@ -77,15 +78,6 @@
 #include <stdint.h>
 
 #include "flash_mma.cuh"
-
-// The bf16 tiling, chosen by tools/flash_tiling_sweep.py, which builds other
-// values with -D: warps of 16 q rows per block at D ≤ 64, K/V rows per tile.
-#ifndef FLASH_FWD_WARPS
-#define FLASH_FWD_WARPS 8
-#endif
-#ifndef FLASH_FWD_BLOCK_N
-#define FLASH_FWD_BLOCK_N 64
-#endif
 
 namespace {
 
@@ -266,10 +258,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // four warps keep two blocks on an SM.
 template <int D>
 struct MmaTiling {
-  static constexpr int kWarps = D <= 64 ? FLASH_FWD_WARPS : 4;
+  static constexpr int kWarps = D <= 64 ? 8 : 4;
   static constexpr int kRows = kWarps * 16;  // q rows per block
   static constexpr int kThreads = kWarps * 32;
-  static constexpr int kBlockN = FLASH_FWD_BLOCK_N;
+  static constexpr int kBlockN = 64;
+  static_assert(kBlockN % 16 == 0, "P·V steps over K/V rows in k16 slices");
   // Qs [kRows][D+8], then K and V tiles [2][kBlockN][D+8] each, bf16
   static constexpr size_t kSmem = sizeof(bf16) * (kRows + 4 * kBlockN) * (D + 8);
 };

@@ -176,15 +176,10 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One ``csrc/<name>.cu``: built at first use into a ``ctypes`` library, launches counted.
+    """One ``csrc/<name>.cu``: built at first use into a ``ctypes`` library, launches counted."""
 
-    ``defines`` (``"NAME=value"``) go to ``nvcc`` as ``-D`` flags, for a
-    build with other values of a source's compile-time knobs.
-    """
-
-    def __init__(self, name: str, argtypes: list, defines: tuple = ()):
+    def __init__(self, name: str, argtypes: list):
         self.name = name
-        self.flags = (*_NVCC_FLAGS, *(f"-D{d}" for d in defines))
         self.source = os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
         self.launches = 0
         self.copies = 0
@@ -194,7 +189,7 @@ class CudaKernel:
 
     def library_path(self) -> str:
         """``build/torch_kernels/<hash>/lib<name>.so``, hashed over the source, the headers and the flags."""
-        digest = hashlib.sha256(" ".join(self.flags).encode())
+        digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
         csrc = os.path.dirname(self.source)
         headers = sorted(n for n in os.listdir(csrc) if n.endswith(".cuh"))
         for path in (self.source, *(os.path.join(csrc, n) for n in headers)):
@@ -224,7 +219,7 @@ class CudaKernel:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
         os.close(fd)
         proc = subprocess.Popen(
-            [nvcc, *self.flags, "-o", tmp, self.source],
+            [nvcc, *_NVCC_FLAGS, "-o", tmp, self.source],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         return proc, tmp
@@ -295,14 +290,13 @@ def _check_inputs(tensors: dict, ref: torch.Tensor) -> None:
 class FlashAttentionForward(CudaKernel):
     """The forward kernel; ``lse=True`` also returns the fp32 row logsumexp ``[B, H, S]``."""
 
-    def __init__(self, defines: tuple = ()):
+    def __init__(self):
         super().__init__(
             "flash_attn_fwd",
             [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 5
             + [ctypes.c_int64] * 12
             + [ctypes.c_float, ctypes.c_void_p],
-            defines,
         )
 
     def __call__(self, q, k, v, *, lse: bool = False):
@@ -334,13 +328,12 @@ class FlashAttentionForward(CudaKernel):
 class FlashAttentionBackward(CudaKernel):
     """The backward kernel: ``(dq, dk, dv)`` from q, k, v, the output, its gradient and the lse."""
 
-    def __init__(self, defines: tuple = ()):
+    def __init__(self):
         super().__init__(
             "flash_attn_bwd",
             [ctypes.c_void_p] * 10
             + [ctypes.c_int] * 5
             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
-            defines,
         )
 
     def __call__(self, q, k, v, o, do, lse):

@@ -201,10 +201,17 @@ def test_library_path_hashes_the_shared_header(tmp_path):
     assert kernel.library_path() != first  # an edited header rebuilds
 
 
-def test_defines_reach_nvcc_and_the_build_hash():
-    kernel = fa.FlashAttentionForward(("FLASH_FWD_WARPS=4",))
-    assert kernel.flags[-1] == "-DFLASH_FWD_WARPS=4" and kernel.flags[:-1] == fa.FLASH_FWD.flags
-    assert kernel.library_path() != fa.FLASH_FWD.library_path()  # its own build
+def test_wrapper_copies_and_counts_only_unaligned_bf16_inputs():
+    kernel = fa.CudaKernel("flash_attn_fwd", [])
+    b, s, h, d = 2, 16, 2, 64
+    qkv = torch.randn((b, s, 3 * h * d + 1)).to(torch.bfloat16)
+    third = qkv[..., : h * d].view(b, s, h, d)  # row stride 385: unaligned
+    aligned = torch.zeros((b, s, h, d), dtype=torch.bfloat16)
+    fp32 = third.float()[:, :, :, 1:]  # fp32 never takes the aligned path
+    out = kernel._aligned(third, aligned, fp32)
+    assert kernel.copies == 1
+    assert out[0] is not third and fa._aligned16(out[0]) and torch.equal(out[0], third)
+    assert out[1] is aligned and out[2] is fp32
 
 
 def test_kernel_module_imports_without_nvcc():
