@@ -5,11 +5,15 @@
 
 Builds the CUDA flash-attention forward and backward from
 ``diffusion_classifier_tpu_torch/csrc/`` (one ``nvcc`` each, started
-together) and drives the port's two main paths at full width (384 = 6 × 64,
-12 layers, 256 px → Haar DWT 128 × 128 × 12 → 1024 tokens) with seeded
-random weights and synthetic data: CheXpert DiT-b4 ELBO classification
-through ``experiments/chexpert-dit/inference_torch.py``, and DiT-b4 training
-through ``experiments/chexpert-dit/train_torch.py``. Phases:
+together) and drives the port's main paths at full width with seeded random
+weights and synthetic data: CheXpert DiT-b4 (384 = 6 × 64, 12 layers, 256 px
+→ Haar DWT 128 × 128 × 12 → 1024 tokens) ELBO classification and CFG
+sampling through ``experiments/chexpert-dit/inference_torch.py`` and
+training through ``experiments/chexpert-dit/train_torch.py``; the CIFAR-10
+flagship UNet (blocks 128/128/256/512, 95.9 M parameters; attention at 64
+tokens × D=32 and 16 tokens × D=64) ELBO classification with the shared
+prefix and CFG sampling through ``experiments/cifar10/inference_torch.py``.
+Phases:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: compiles both kernels, prints the seconds, ptxas' register use and
@@ -36,7 +40,26 @@ through ``experiments/chexpert-dit/train_torch.py``. Phases:
    at B=16) with its eval, launch counts, no alignment copy, a finite loss
    at every step, a checkpoint that ``inference_torch.main()`` reads back;
    then the median step time, images/s and one profiler trace of a warm
-   step.
+   step;
+9. forward kernel vs its plain version at the UNet's shapes, separate
+   q/k/v as its projections give them, bf16 and fp32, no alignment copy,
+   each timed in turns with SDPA as in phase 3, with the plain version's
+   time and the bound;
+10. the full-width flagship UNet forward in bf16: kernel vs plain attention
+    on the same weights (relative L2 ≤ 1e-2), ``full`` vs tail ∘ encode,
+    11 launches a tail and none in the encode;
+11. the CIFAR classify entry point: a seeded checkpoint, then
+    ``inference_torch.main()`` at B=64, 4 evaluations × 10 classes, with the
+    encode and tail forwards counted against the count that
+    ``auto_eval_group`` and the class chunk give, 11 launches a tail, no
+    alignment copy; classify throughput at B=64 and latency at B=1, with a
+    profiler table split into encode and tail;
+12. CFG sampling through both entry points (``classification=false``, 128
+    steps, a numpy-only plot function): the CIFAR UNet at B=32 (encode on B
+    and tail on 2B each step) and DiT-b4 at B=16 (one 2B forward each
+    step), output finite in [-1, 1], forwards and launches counted; then
+    samples/s, device time and idle share, and a profiler table of one
+    sampling step.
 
 Each path's launch and copy counts are set to 0 just before it runs and read
 just after. Any failed check raises and exits non-zero. The second-to-last line
@@ -69,6 +92,10 @@ KERNELS = {
 }
 # the classify megabatch (16 x 1 class per chunk) and the train batch
 DIT_SHAPE = (16, 1024, 6, 64)
+# the CIFAR UNet's attention: level 2 (8x8 tokens, 256 = 8 x 32) and level 3
+# and mid (4x4 tokens, 512 = 8 x 64), at the classify megabatch (64 images x
+# 1 class a chunk) and the sampler's CFG pair (2 x 64)
+UNET_SHAPES = [(64, 64, 8, 32), (64, 16, 8, 64), (128, 64, 8, 32), (128, 16, 8, 64)]
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 without
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -113,6 +140,19 @@ INFERENCE_CONFIG = {
     "evaluation_per_stage": [4],
     "evaluation_batches": 1,
 }
+# the CIFAR flagship: the bench's cut (4 evaluations of the config's 16) at
+# its batch, 2 batches of the synthetic set's 128 val images
+CIFAR_CONFIG = {
+    "data_path": "synthetic",
+    "image_size": 32,
+    "classes": 10,
+    "encoder_type": "nn",
+    "mixed_precision": "bf16",
+    "batch_size": 64,
+    "evaluation_per_stage": [4],
+    "evaluation_batches": 1,
+}
+SAMPLE_STEPS = 128  # the config default
 # one epoch of the synthetic set's 256 train images: 16 steps at B=16; the
 # loss goes to track.jsonl at every step
 TRAINING_CONFIG = dict(
@@ -205,12 +245,16 @@ def strided_qkv(shape, dtype, gen):
 CATEGORIES = (
     ("flash forward", ("flash_fwd",)),
     ("flash backward", ("dkdv", "dq_", "delta")),
+    ("convolution", ("fprop", "dgrad", "wgrad", "conv2d", "convolve", "implicit")),
     ("matmul", ("gemm", "addmm", "matmul", "cutlass", "xmma", "cublas", "nvjet")),
 )
 
 
 def profile_table(tag, fn):
-    """Profile one call of ``fn``; print device time by kernel and by category, return the total ms."""
+    """Profile one call of ``fn``; print device time by kernel and by category.
+
+    Returns ``(total device ms, {category: ms})``.
+    """
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -229,7 +273,7 @@ def profile_table(tag, fn):
         f"{c} {ms:.2f} ms ({100 * ms / total:.1f}%)" for c, ms in by_category.items()))
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         print(f"{tag}   {ms:8.3f} ms {100 * ms / total:5.1f}% x{count:<4d} {key[:90]}")
-    return total
+    return total, by_category
 
 
 def phase_device():
@@ -300,7 +344,7 @@ def phase_build(fa):
 
 def phase_kernel(fa):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    record = {}
+    record = {"shapes": []}
     for shape, dtype in KERNEL_CASES:
         q, k, v = strided_qkv(shape, dtype, gen)
         got = fa.FLASH_FWD(q, k, v)
@@ -311,6 +355,7 @@ def phase_kernel(fa):
         err = (got.float() - want.float()).abs().max().item()
         print(f"[3 kernel] {shape} {str(dtype)[6:]} strided q/k/v: max |kernel - plain| = {err:.3e} (atol {TOL[dtype]['atol']}, rtol {TOL[dtype]['rtol']})")
         torch.testing.assert_close(got, want, **TOL[dtype])
+        record["shapes"].append({"shape": list(shape), "dtype": str(dtype)[6:], "qkv": "strided thirds", "max_abs_err": err})
         if shape == DIT_SHAPE:
             b, s, h, d = shape
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -329,7 +374,7 @@ def phase_kernel(fa):
 
 def phase_backward(fa):
     gen = torch.Generator(device="cuda").manual_seed(3)
-    record = {}
+    record = {"shapes": []}
     for shape, dtype in BWD_CASES:
         q, k, v = strided_qkv(shape, dtype, gen)
         do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -345,6 +390,7 @@ def phase_backward(fa):
         print(f"[6 backward] {shape} {str(dtype)[6:]} strided q/k/v: max |kernel - plain| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (atol {TOL[dtype]['atol']}, rtol {TOL[dtype]['rtol']})")
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             torch.testing.assert_close(g, w, **TOL[dtype], msg=lambda m: f"{name} at {shape}: {m}")
+        record["shapes"].append({"shape": list(shape), "dtype": str(dtype)[6:], "qkv": "strided thirds", "max_abs_err": max(errs)})
         if shape == DIT_SHAPE:
             b, s, h, d = shape
             record["max_abs_err"] = max(errs)
@@ -389,9 +435,9 @@ def phase_dit(fa, chexpert, config):
     check(rel <= 1e-2, f"relative L2 {rel} > 1e-2")
 
 
-def load_script(name):
-    path = os.path.join(REPO, "experiments", "chexpert-dit", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(name, path)
+def load_script(name, experiment="chexpert-dit"):
+    path = os.path.join(REPO, "experiments", experiment, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"{experiment}_{name}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -444,7 +490,7 @@ def phase_entry_point(fa, chexpert, config_cls, workdir):
     print(f"[5 entry] classify B=16 (4 evals x 2 classes): {ms16:.2f} ms -> {16e3 / ms16:.2f} images/s")
     print(f"[5 entry] classify B=1 latency (4 evals x 2 classes): {ms1:.2f} ms")
     for b, ms in ((16, ms16), (1, ms1)):
-        busy = profile_table(f"[5 entry] classify B={b}", lambda: engine.classify(images[:b]))
+        busy, _ = profile_table(f"[5 entry] classify B={b}", lambda: engine.classify(images[:b]))
         print(f"[5 entry] classify B={b}: device busy {busy:.2f} of {ms:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / ms):.1f}%")
     return launches
 
@@ -538,9 +584,304 @@ def phase_train(fa, config_cls, workdir):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[8 train] step B={config.batch_size} median {step_ms:.2f} ms -> {config.batch_size * 1e3 / step_ms:.2f} images/s; peak memory {peak_gb:.2f} GB")
 
-    busy = profile_table("[8 train] one warm step", lambda: engine.train_step(batch))
+    busy, _ = profile_table("[8 train] one warm step", lambda: engine.train_step(batch))
     print(f"[8 train] step: device busy {busy:.2f} of {step_ms:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / step_ms):.1f}%")
     return fwd, bwd
+
+
+def phase_unet_kernel(fa):
+    """The forward kernel vs its plain version at the UNet's shapes; returns the per-shape records."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    records = []
+    for shape in UNET_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+            reset_counts(fa)
+            got = fa.FLASH_FWD(q, k, v)
+            torch.cuda.synchronize()
+            check(fa.FLASH_FWD.copies == 0, f"the kernel copied an input at {shape}")
+            want = fa.flash_attention_reference(q, k, v)
+            check(got.dtype == dtype and got.shape == q.shape and bool(torch.isfinite(got).all()),
+                  f"output {got.dtype} {got.shape} at {shape}")
+            torch.testing.assert_close(got, want, **TOL[dtype])
+            b, s, h, d = shape
+            record = {"shape": list(shape), "dtype": str(dtype)[6:], "qkv": "separate",
+                      "max_abs_err": (got.float() - want.float()).abs().max().item()}
+            record["plain_ms"] = cuda_ms(lambda: fa.flash_attention_reference(q, k, v), inner=BACK_TO_BACK)
+            qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            timed_in_turns(record, lambda: fa.FLASH_FWD(q, k, v), lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            # at these sizes the host sets the pace of back-to-back calls: the
+            # profiler gives each one's device time
+            record["device_ms"] = device_ms(lambda: fa.FLASH_FWD(q, k, v))
+            record["library_device_ms"] = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            record["plain_device_ms"] = device_ms(lambda: fa.flash_attention_reference(q, k, v))
+            record["bound_ms"], record["bound_by"] = bound(
+                4 * b * h * s * s * d, 4 * q.numel() * q.element_size(), dtype
+            )
+            print(f"[9 unet kernel] {shape} {record['dtype']}: max |kernel - plain| {record['max_abs_err']:.3e}; device time kernel {record['device_ms']:.4f} ms, SDPA {record['library_device_ms']:.4f} ms, plain {record['plain_device_ms']:.4f} ms; CUDA events over back-to-back calls kernel {record['ms']:.4f} ms, SDPA {record['library_ms']:.4f} ms (kernel/SDPA {record['library_ratio']:.3f}), plain {record['plain_ms']:.4f} ms; single calls kernel {record['call_ms']:.4f} ms, SDPA {record['library_call_ms']:.4f} ms; host {record['host_us']:.1f} us a call; bound {record['bound_ms']:.5f} ms ({record['bound_by']})")
+            records.append(record)
+    return records
+
+
+def count_forwards(calls):
+    """A forward hook counting the Denoiser's calls by mode and batch: ``calls[(mode, rows)]``."""
+    from diffusion_classifier_tpu_torch.engine.denoiser import Denoiser
+
+    def hook(module, args, output):
+        if isinstance(module, Denoiser):
+            if isinstance(output, tuple):
+                key = ("encode", args[0].shape[0])
+            else:
+                key = ("tail" if args[0] is None else "full", output.shape[0])
+            calls[key] = calls.get(key, 0) + 1
+
+    return torch.nn.modules.module.register_module_forward_hook(hook)
+
+
+def flagship(cifar, config_cls, mixed_precision):
+    """The flagship denoiser (UNet + class embedder) on the card, with the same seeded weights for either precision."""
+    from diffusion_classifier_tpu_torch.engine.denoiser import Denoiser
+    from diffusion_classifier_tpu_torch.models.encoders import ClassEmbedder
+    from diffusion_classifier_tpu_torch.models.layers import reset_parameters
+
+    config = config_cls.from_dict(dict(CIFAR_CONFIG, mixed_precision=mixed_precision))
+    dtype = torch.bfloat16 if mixed_precision == "bf16" else torch.float32
+    model = Denoiser(cifar.build_backbone(config), ClassEmbedder(10, 128, dtype))
+    reset_parameters(model, torch.Generator().manual_seed(0))
+    return model.to("cuda").eval()
+
+
+def set_attn_backend(model, backend):
+    from diffusion_classifier_tpu_torch.models.layers import MultiHeadAttention
+
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.attn_backend = backend
+
+
+def device_ms(fn, calls=20):
+    """Device milliseconds per call of ``fn()``: the profiler's kernel time over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    return total / 1e3 / calls
+
+
+def phase_unet_forward(fa, cifar, config_cls):
+    """The flagship forward, kernel vs plain attention, in bf16 and in fp32, on the same weights.
+
+    A one-ulp change in the attention output moves this network's bf16
+    output by ~1.4% (relative L2): plain attention against SDPA's gives the
+    same on the CPU, and each bf16 forward lies ~1.6% from the fp32 one. So
+    the bf16 kernel is held to the bf16 noise floor (its distance from the
+    plain bf16 forward, and from the fp32 forward, no larger than the plain
+    bf16 forward's own distance from fp32), and the fp32 kernel, whose
+    rounding is fp32's, to the plain fp32 forward at 1e-4.
+    """
+    model = flagship(cifar, config_cls, "bf16")
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b = 64
+    x = torch.rand((b, 32, 32, 3), generator=gen, device="cuda") * 2 - 1
+    t = torch.randn((b,), generator=gen, device="cuda") * 4
+    y = torch.randint(0, 11, (b,), generator=gen, device="cuda")
+    with torch.no_grad():
+        reset_counts(fa)
+        full = model(x, t, y)
+        torch.cuda.synchronize()
+        full_launches = fa.FLASH_FWD.launches
+        state = model(x, t, None, mode="encode")
+        torch.cuda.synchronize()
+        encode_launches = fa.FLASH_FWD.launches - full_launches
+        tail = model(None, None, y, mode="tail", prefix_state=state)
+        torch.cuda.synchronize()
+        tail_launches = fa.FLASH_FWD.launches - full_launches - encode_launches
+        check_no_copies(fa, "[10 unet]")
+        set_attn_backend(model, "xla")  # the plain version, same weights
+        before = fa.FLASH_FWD.launches
+        plain = model(x, t, y)
+        torch.cuda.synchronize()
+        check(fa.FLASH_FWD.launches == before, "attn_backend='xla' launched the kernel")
+        model32 = flagship(cifar, config_cls, "no")
+        reset_counts(fa)
+        kernel32 = model32(x, t, y)
+        torch.cuda.synchronize()
+        launches32 = fa.FLASH_FWD.launches
+        set_attn_backend(model32, "xla")
+        plain32 = model32(x, t, y)
+    check(full.shape == (b, 32, 32, 3) and full.dtype == torch.float32, f"UNet output {full.shape}")
+    check(bool(torch.isfinite(full).all()) and bool(torch.isfinite(kernel32).all()), "non-finite UNet output")
+
+    def rel(a, ref):
+        return ((a - ref).norm() / ref.norm()).item()
+
+    rel_bf16, floor = rel(full, plain), rel(plain, plain32)
+    rel_kernel_fp32, rel32, rel_split = rel(full, plain32), rel(kernel32, plain32), rel(tail, full)
+    print(f"[10 unet] flagship {n_params} parameters, forward B={b}: launches bf16 full {full_launches}, encode {encode_launches}, tail {tail_launches}, fp32 full {launches32}; rel L2 bf16 kernel vs bf16 plain {rel_bf16:.3e}, bf16 plain vs fp32 plain {floor:.3e} (the bf16 floor), bf16 kernel vs fp32 plain {rel_kernel_fp32:.3e}; fp32 kernel vs fp32 plain {rel32:.3e} (limit 1e-4); tail(encode) vs full {rel_split:.3e}")
+    check(n_params == 95927043, f"{n_params} parameters, the flagship has 95927043")
+    check((full_launches, encode_launches, tail_launches, launches32) == (11, 0, 11, 11),
+          f"launches full/encode/tail/fp32 {(full_launches, encode_launches, tail_launches, launches32)}, expected 11/0/11/11")
+    check(rel_bf16 <= floor, f"bf16 kernel vs plain {rel_bf16} above the bf16 floor {floor}")
+    check(rel_kernel_fp32 <= 1.1 * floor, f"bf16 kernel vs fp32 {rel_kernel_fp32} > 1.1 x the floor {floor}")
+    check(rel32 <= 1e-4, f"fp32 kernel vs plain: relative L2 {rel32} > 1e-4")
+    check(rel_split <= 1e-3, f"tail(encode(x)) differs from the full forward: {rel_split}")
+
+
+def numpy_plotter(saved):
+    """A ``plot_function`` that needs no matplotlib: it saves the first batch of samples as .npy."""
+    import numpy as np
+
+    def plot(output_dir, batches, samples, epoch, process_idx):
+        path = os.path.join(output_dir, f"samples_{epoch}_{process_idx}.npy")
+        np.save(path, np.asarray(samples[0]))
+        saved.append(path)
+        return path
+
+    return plot
+
+
+def phase_unet_classify(fa, cifar, config_cls, workdir):
+    from diffusion_classifier_tpu_torch.diffusion.classify import auto_eval_group
+
+    cfg = dict(CIFAR_CONFIG, project_root=workdir, experiment_dir="cifar10")
+    config = config_cls.from_dict(dict(cfg))
+    seeded = cifar.build_engine(config)
+    seeded.init_params()
+    seeded.save_checkpoint(0)
+    del seeded
+
+    inference_torch = load_script("inference_torch", "cifar10")
+    os.environ["INFERENCE_CONFIG"] = json.dumps(cfg)
+    calls = {}
+    hook = count_forwards(calls)
+    try:
+        reset_counts(fa)
+        metric_output, preds, _ = inference_torch.main([])
+        torch.cuda.synchronize()
+        launches = fa.FLASH_FWD.launches
+    finally:
+        hook.remove()
+    b, c, evals = config.batch_size, config.classes, config.evaluation_per_stage[0]
+    n_batches = config.evaluation_batches + 1
+    group = auto_eval_group(evals, b, c, img_elems=32 * 32 * 3)
+    chunk = config.classify_class_chunk
+    chunk = chunk if chunk >= 0 else (1 if b >= 16 else 0)
+    cc = chunk if chunk and c % chunk == 0 else c
+    want = {("encode", group * b): n_batches * evals // group,
+            ("tail", group * b * cc): n_batches * evals // group * (c // cc)}
+    print(f"[11 unet classify] inference_torch.main(): {len(preds)} batches of {b}, forwards by (mode, rows) {calls} (expected {want}: G={group}, {c // cc} chunks of {cc} classes), {launches} forward kernel launches, {fa.FLASH_BWD.launches} backward; {metric_output}")
+    check_no_copies(fa, "[11 unet classify]")
+    check(calls == want, f"forwards {calls}, expected {want}")
+    check(launches == 11 * want[("tail", group * b * cc)], f"{launches} launches for {want} forwards")
+    check(fa.FLASH_BWD.launches == 0, "classification launched the backward")
+    check(len(preds) == n_batches and len(metric_output) == 1, f"{len(preds)} batches, metrics {metric_output}")
+    for p in preds:
+        check(tuple(p.shape) == (b,) and bool(((p >= 0) & (p < c)).all()), f"predictions {p.tolist()}")
+
+    engine = cifar.build_engine(config)
+    engine.init_params()
+    engine.load_checkpoint(os.path.join(config.experiment_path, "checkpoints"), train_state=False)
+    images = (torch.rand((b, 32, 32, 3), generator=torch.Generator().manual_seed(7)) * 2 - 1).numpy()
+    ms64 = cuda_ms(lambda: engine.classify(images), reps=3, warmup=1)
+    ms1 = cuda_ms(lambda: engine.classify(images[:1]), reps=10, warmup=2)
+    print(f"[11 unet classify] classify B={b} ({evals} evals x {c} classes, shared prefix): {ms64:.2f} ms -> {b * 1e3 / ms64:.2f} images/s")
+    print(f"[11 unet classify] classify B=1 latency: {ms1:.2f} ms")
+    for batch, ms in ((b, ms64), (1, ms1)):
+        busy, cats = profile_table(f"[11 unet classify] classify B={batch}", lambda: engine.classify(images[:batch]))
+        print(f"[11 unet classify] classify B={batch}: device busy {busy:.2f} of {ms:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / ms):.1f}%; flash forward {cats['flash forward']:.2f} ms ({100 * cats['flash forward'] / busy:.1f}%)")
+    # the split: one encode on B and one tail on B (1 class a chunk), as the call runs them
+    z = torch.rand((b, 32, 32, 3), generator=torch.Generator().manual_seed(8)).cuda() * 2 - 1
+    lg = torch.zeros((b,), device="cuda")
+    labels = torch.zeros((b,), dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        state = engine._encode(z, lg)
+        enc_ms, enc = profile_table(f"[11 unet classify] one encode B={b}", lambda: engine._encode(z, lg))
+        tail_ms, tail = profile_table(f"[11 unet classify] one tail B={b}", lambda: engine._tail(state, labels))
+    n_enc, n_tail = want[("encode", group * b)] // n_batches, want[("tail", group * b * cc)] // n_batches
+    print(f"[11 unet classify] B={b} split: {n_enc} encodes x {enc_ms:.3f} ms = {n_enc * enc_ms:.2f} ms, {n_tail} tails x {tail_ms:.3f} ms = {n_tail * tail_ms:.2f} ms device time; flash forward {tail['flash forward']:.3f} ms a tail ({100 * tail['flash forward'] / tail_ms:.1f}%), {enc['flash forward']:.3f} ms an encode")
+    return launches, {"images_per_s_b64": b * 1e3 / ms64, "latency_ms_b1": ms1}
+
+
+def phase_sampling(fa, cifar, chexpert, config_cls, workdir):
+    from torch.utils._pytree import tree_map
+
+    from diffusion_classifier_tpu_torch.diffusion.sampler import TorchSampleDraws, make_sampler
+
+    launches, rates = {}, {}
+    cases = (
+        ("cifar10", cifar, dict(CIFAR_CONFIG, batch_size=32), 11, True),
+        ("chexpert-dit", chexpert, dict(INFERENCE_CONFIG), 12, False),
+    )
+    for experiment, module, base, per_forward, prefix in cases:
+        cfg = dict(base, classification=False, sampling_steps=SAMPLE_STEPS, evaluation_batches=0,
+                   project_root=workdir, experiment_dir=f"{experiment}-sample")
+        config = config_cls.from_dict(dict(cfg))
+        seeded = module.build_engine(config)
+        seeded.init_params()
+        seeded.save_checkpoint(0)
+        del seeded
+        tag = f"[12 sample {experiment}]"
+        os.environ["INFERENCE_CONFIG"] = json.dumps(cfg)
+        calls, saved = {}, []
+        hook = count_forwards(calls)
+        try:
+            reset_counts(fa)
+            samples, _ = load_script("inference_torch", experiment).main([], plot_function=numpy_plotter(saved))
+            torch.cuda.synchronize()
+            n = fa.FLASH_FWD.launches
+        finally:
+            hook.remove()
+        b, steps = config.batch_size, SAMPLE_STEPS + 1  # the noisy steps and the final one
+        want = {("encode", b): steps, ("tail", 2 * b): steps} if prefix else {("full", 2 * b): steps}
+        out = samples[0]
+        print(f"{tag} inference_torch.main(): samples {tuple(out.shape)}, range [{out.min().item():.4f}, {out.max().item():.4f}], forwards {calls} (expected {want}), {n} forward kernel launches, plot {saved}")
+        check_no_copies(fa, tag)
+        check(len(samples) == 1 and out.shape[0] == b and bool(torch.isfinite(out).all()), "sample shape or values")
+        check(out.abs().max().item() <= 1.0, "samples outside [-1, 1]")
+        check(calls == want, f"forwards {calls}, expected {want}")
+        check(n == per_forward * steps, f"{n} launches for {steps} conditioned forwards")
+        check(len(saved) == 1 and os.path.isfile(saved[0]), "the plot function did not run")
+        launches[experiment] = n
+
+        engine = module.build_engine(config)
+        engine.init_params()
+        engine.load_checkpoint(os.path.join(config.experiment_path, "checkpoints"), train_state=False)
+        x = next(iter(module.build_data(config).get_test_loader()))["images"]
+        ms = cuda_ms(lambda: engine.sample(x), reps=2, warmup=0)  # the entry point's call warmed up
+        # one sampling step: a sampler of one noisy step plus the final one,
+        # halved (profiling a whole call's 10^5 kernels takes minutes)
+        one = make_sampler(
+            lambda z, lg, lab: engine.state.ema_model(z, lg, lab), engine.schedule_fn,
+            pred_param=config.pred_param, cfg_w=config.cfg_w, null_token=engine.null_token,
+            sampling_steps=1, encode_fn=engine._encode, tail_fn=engine._tail,
+        )
+        xd = engine._images(x)
+        labels = torch.zeros((b,), dtype=torch.long, device="cuda")
+        draws = TorchSampleDraws(torch.Generator(device="cuda").manual_seed(9))
+        step_ms, step = profile_table(f"{tag} two sampling steps (one noisy, the final)", lambda: one(xd, labels, draws))
+        busy = step_ms / 2 * steps
+        print(f"{tag} one step: {step_ms / 2:.3f} ms device time, flash forward {step['flash forward'] / 2:.3f} ms ({100 * step['flash forward'] / step_ms:.1f}%)")
+        print(f"{tag} B={b}, {SAMPLE_STEPS} steps: {ms:.1f} ms -> {b * 1e3 / ms:.2f} samples/s ({SAMPLE_STEPS * 1e3 / ms:.1f} steps/s); device time {busy:.1f} ms ({steps} x one step), idle ~{100 * max(0.0, 1 - busy / ms):.1f}%")
+        rates[experiment] = {"samples_per_s": b * 1e3 / ms, "ms": ms, "device_ms": busy}
+        if prefix:
+            with torch.no_grad():
+                lg = torch.zeros((b,), device="cuda")
+                state = engine._encode(xd, lg)
+                pair = tree_map(lambda a: torch.cat([a, a]), state)
+                labels2 = torch.zeros((2 * b,), dtype=torch.long, device="cuda")
+                enc_ms, _ = profile_table(f"{tag} one encode B={b}", lambda: engine._encode(xd, lg))
+                tail_ms, _ = profile_table(f"{tag} one tail 2B={2 * b}", lambda: engine._tail(pair, labels2))
+            print(f"{tag} step split: encode {enc_ms:.3f} ms, tail {tail_ms:.3f} ms device time")
+    return launches, rates
 
 
 def loaded_from_jax_package():
@@ -559,6 +900,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, REPO)
     from diffusion_classifier_tpu_torch.experiments import chexpert_dit as chexpert
+    from diffusion_classifier_tpu_torch.experiments import cifar10 as cifar
     from diffusion_classifier_tpu_torch.ops import flash_attention as fa
     from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
 
@@ -573,6 +915,10 @@ def main() -> int:
         classify_fwd = phase_entry_point(fa, chexpert, ExperimentConfig, workdir)
         phase_dit_grads(fa, chexpert, config)
         train_fwd, train_bwd = phase_train(fa, ExperimentConfig, workdir)
+        records["flash_attn_fwd"]["shapes"] += phase_unet_kernel(fa)
+        phase_unet_forward(fa, cifar, ExperimentConfig)
+        unet_classify_fwd, unet_rates = phase_unet_classify(fa, cifar, ExperimentConfig, workdir)
+        sample_fwd, sample_rates = phase_sampling(fa, cifar, chexpert, ExperimentConfig, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
@@ -580,9 +926,13 @@ def main() -> int:
     check(not stray, f"modules loaded from the JAX package: {stray}")
 
     launches = {
-        "flash_attn_fwd": {"classify": classify_fwd, "train": train_fwd},
+        "flash_attn_fwd": {
+            "classify": classify_fwd, "train": train_fwd, "unet_classify": unet_classify_fwd,
+            "unet_sample": sample_fwd["cifar10"], "dit_sample": sample_fwd["chexpert-dit"],
+        },
         "flash_attn_bwd": {"classify": 0, "train": train_bwd},
     }
+    print(json.dumps({"paths": {"unet_classify": unet_rates, "sample": sample_rates}}))
     print(json.dumps({"kernels": [
         {
             "name": name,
@@ -593,7 +943,7 @@ def main() -> int:
             "launches_by_path": launches[name],
             **{key: records[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "library_ratio", "call_ms", "library_call_ms", "host_us")},
+                "library_ratio", "call_ms", "library_call_ms", "host_us", "shapes")},
             "hmma": hmma[name],
         }
         for name, (source, replaces) in KERNELS.items()

@@ -13,6 +13,11 @@ Same protocol and the same megabatch schedule as the JAX module:
   ties going to the lower class id as with ``lax.top_k`` (a stable sort).
 - Fast mode scores the true class plus ``n_fast_classes − 1`` incorrect
   classes drawn uniformly with replacement; candidate 0 is the true class.
+- With ``encode_fn``/``tail_fn`` (the UNet's prefix split) the
+  condition-free prefix runs once per evaluation group on ``[G·B]``; its
+  state is repeated per class (``repeat_interleave`` on dim 0, matching the
+  labels' ``(G, B, cc)`` order) and only the conditioned tail runs on the
+  ``[G·B·cc]`` megabatch.
 
 The JAX scans become Python loops, so ``scan_unroll`` (an XLA schedule knob)
 is accepted and ignored. The random draws come from a :class:`Draws`
@@ -28,6 +33,7 @@ import math
 from typing import Callable, Protocol, Sequence
 
 import torch
+from torch.utils._pytree import tree_map
 
 from .process import bcast_right, pred_to_eps
 from .schedule import alpha_sigma
@@ -115,18 +121,16 @@ def make_classifier(
 ):
     """Build ``classify(x, labels, draws) -> predicted class ids [B]``.
 
-    ``apply_fn(z, logsnr, labels)`` is the denoiser forward. ``labels`` is
-    read only in fast mode. ``class_chunk`` changes the schedule, never the
+    ``apply_fn(z, logsnr, labels)`` is the denoiser forward; with
+    ``encode_fn(z, logsnr) -> state`` and ``tail_fn(state, labels) -> pred``
+    the prefix is shared across the classes. ``labels`` is read only in
+    fast mode. ``class_chunk`` changes the schedule, never the
     predictions (0 = all classes at once, -1 = 1 at batch ≥ 16). With
     ``trace=True`` it also returns, per stage, ``{"mean", "cand"}``.
     ``scan_unroll`` is ignored (see the module docstring).
     """
     del scan_unroll
-    if encode_fn is not None or tail_fn is not None:
-        raise NotImplementedError(
-            "the shared-prefix (encode/tail) path is the UNet's, not ported yet "
-            "(ROADMAP A4)"
-        )
+    prefix = encode_fn is not None and tail_fn is not None
     ev = (0,) + tuple(evaluation_per_stage)
     keep = tuple(n_keep_per_stage)
     if len(ev) - 1 != n_stages or len(keep) != n_stages:
@@ -166,6 +170,10 @@ def make_classifier(
             a = bcast_right(alpha_t, eps.ndim).to(x.dtype)
             s = bcast_right(sigma_t, eps.ndim).to(x.dtype)
             z = a * x[None] + s * eps  # [G, B, ...]
+            state = None
+            if prefix:  # the condition-free prefix, once per (eval, image)
+                z_flat = z.reshape((group * b,) + tuple(x.shape[1:]))
+                state = encode_fn(z_flat, logsnr_t.reshape(group * b))
 
             def score_classes(cand_c):
                 """Errors ``[G, B, cc]`` for candidates ``cand_c [B, cc]``."""
@@ -174,7 +182,14 @@ def make_classifier(
                 lg = logsnr_t[:, :, None].expand(group, b, ncc).reshape(-1)
                 lab = cand_c[None].expand(group, b, ncc).reshape(-1)
                 zz = z[:, :, None].expand((group, b, ncc) + x.shape[1:]).reshape(rows)
-                pred = apply_fn(zz, lg, lab)
+                if state is None:
+                    pred = apply_fn(zz, lg, lab)
+                elif ncc == 1:  # one class a row: the state as it is, no copy
+                    pred = tail_fn(state, lab)
+                else:
+                    # row (g·B + b)·cc + c pairs image (g, b) with class c
+                    rep = tree_map(lambda t: t.repeat_interleave(ncc, dim=0), state)
+                    pred = tail_fn(rep, lab)
                 al, si = alpha_sigma(lg)
                 eps_pred = pred_to_eps(pred, zz, al, si, pred_param)
                 eps_rep = eps[:, :, None].expand((group, b, ncc) + x.shape[1:])

@@ -1,9 +1,9 @@
 """Forward noising and prediction conversions — port of ``diffusion/process.py``.
 
-What ELBO classification and training need: ``bcast_right``, ``diffuse``,
-``pred_to_x``, ``pred_to_eps``, ``clip_x`` and ``weighted_mse_loss``. Images
-are NHWC, per-sample scalars broadcast over the trailing axes. The sampler
-step comes with the sampler (ROADMAP A7).
+``bcast_right``, ``diffuse``, ``pred_to_x``, ``pred_to_eps``, ``clip_x``,
+``cfg_combine``, the ancestral sampler step ``ddpm_sampler_step`` and
+``weighted_mse_loss``. Images are NHWC, per-sample scalars broadcast over
+the trailing axes.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from .schedule import alpha_sigma, min_snr_weight
 
 __all__ = [
     "bcast_right",
+    "cfg_combine",
+    "ddpm_sampler_step",
     "diffuse",
     "clip_x",
     "pred_to_x",
@@ -57,6 +59,11 @@ def clip_x(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, -1.0, 1.0)
 
 
+def cfg_combine(pred: torch.Tensor, u_pred: torch.Tensor, cfg_w: float) -> torch.Tensor:
+    """Classifier-free guidance: ``(1 + w)·pred − w·u_pred``."""
+    return (1.0 + cfg_w) * pred - cfg_w * u_pred
+
+
 def pred_to_x(pred, z_t, alpha_t, sigma_t, pred_param: str) -> torch.Tensor:
     """Convert a model output (v̂ or ε̂) to the clean-image estimate x̂."""
     alpha_t, sigma_t = _like(alpha_t, z_t), _like(sigma_t, z_t)
@@ -74,6 +81,37 @@ def pred_to_eps(pred, z_t, alpha_t, sigma_t, pred_param: str) -> torch.Tensor:
     if pred_param == "v":
         return _like(sigma_t, z_t) * z_t + _like(alpha_t, z_t) * pred
     raise ValueError(f"Invalid pred_param {pred_param!r}")
+
+
+def ddpm_sampler_step(
+    z_t: torch.Tensor,
+    pred: torch.Tensor,
+    u_pred: torch.Tensor,
+    logsnr_t,
+    logsnr_s,
+    *,
+    cfg_w: float,
+    pred_param: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One ancestral DDPM posterior step from ``t`` to ``s < t``; returns ``(μ, var)``.
+
+    ``logsnr_t``/``logsnr_s`` are scalars or ``[B]`` vectors (float32). The
+    guided x̂ is clipped to [-1, 1] before the posterior mean; with
+    ``c = −expm1(logsnr_t − logsnr_s)``, ``μ = α_s·(z_t·(1 − c)/α_t + c·x̂)``
+    and ``var = σ_s²·c``, the coefficients cast to ``z_t.dtype``.
+    """
+    logsnr_t = torch.as_tensor(logsnr_t, device=z_t.device).to(torch.float32)
+    logsnr_s = torch.as_tensor(logsnr_s, device=z_t.device).to(torch.float32)
+    c = -torch.expm1(logsnr_t - logsnr_s)
+    alpha_t, sigma_t = alpha_sigma(logsnr_t)
+    alpha_s, sigma_s = alpha_sigma(logsnr_s)
+
+    guided = cfg_combine(pred, u_pred, cfg_w)
+    x_pred = clip_x(pred_to_x(guided, z_t, alpha_t, sigma_t, pred_param))
+
+    c_b, alpha_t_b, alpha_s_b, sigma_s_b = (_like(v, z_t) for v in (c, alpha_t, alpha_s, sigma_s))
+    mu = alpha_s_b * (z_t * (1.0 - c_b) / alpha_t_b + c_b * x_pred)
+    return mu, torch.square(sigma_s_b) * c_b
 
 
 def weighted_mse_loss(

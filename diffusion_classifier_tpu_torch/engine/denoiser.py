@@ -1,8 +1,16 @@
 """Conditional denoiser: backbone + prompt encoder — port of ``engine/denoiser.py``.
 
 The call signature is ``(z_t, logsnr_t, labels)`` with integer labels (null
-token = ``num_classes``). Only ``mode='full'`` is ported: the encode/tail
-prefix split belongs to the UNet (ROADMAP A3).
+token = ``num_classes``). With an encoder the labels become the backbone's
+context tokens; without one they go to the backbone as they are (the DiT's
+own label table).
+
+``mode`` mirrors the UNet's prefix split (:func:`supports_prefix`):
+
+- ``'full'`` — the ordinary forward (every backbone);
+- ``'encode'`` — the condition-free prefix; labels are ignored;
+- ``'tail'`` — encodes the labels and runs the backbone's conditioned
+  remainder from ``prefix_state``.
 """
 
 from __future__ import annotations
@@ -12,7 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-__all__ = ["Denoiser"]
+__all__ = ["Denoiser", "supports_prefix"]
 
 
 class Denoiser(nn.Module):
@@ -23,16 +31,23 @@ class Denoiser(nn.Module):
 
     def forward(
         self,
-        z_t: torch.Tensor,
-        logsnr_t: torch.Tensor,
+        z_t: Optional[torch.Tensor],
+        logsnr_t: Optional[torch.Tensor],
         labels: Optional[torch.Tensor],
         *,
         mode: str = "full",
-    ) -> torch.Tensor:
-        if mode != "full":
-            raise NotImplementedError(
-                f"Denoiser mode {mode!r} is the UNet prefix split, not ported yet "
-                f"(ROADMAP A3)"
-            )
+        prefix_state=None,
+    ):
+        if mode == "encode":
+            return self.backbone(z_t, logsnr_t, None, mode="encode")
         cond = self.encoder(labels) if self.encoder is not None else labels
+        if mode == "tail":
+            return self.backbone(None, None, cond, mode="tail", prefix_state=prefix_state)
+        if mode != "full":
+            raise ValueError(f"unknown mode {mode!r}")
         return self.backbone(z_t, logsnr_t, cond)
+
+
+def supports_prefix(backbone) -> bool:
+    """True if the backbone has the encode/tail split with a nonempty prefix."""
+    return getattr(backbone, "prefix_split", 0) > 0

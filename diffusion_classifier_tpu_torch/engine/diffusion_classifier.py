@@ -1,25 +1,27 @@
 """DiffusionClassifier engine — port of ``engine/diffusion_classifier.py``.
 
-Ported: construction (schedule, denoiser, classifier, in-graph Haar DWT),
-seeded ``init_params``, the train state (training parameters, an EMA copy,
-Adam's state, step and EMA counters), ``train_step``, ``loss``,
-``train_loop`` (epochs, log cadence, classification eval every
-``save_image_epochs``, best-metric checkpoints, resume, the save on
-SIGTERM/SIGINT), ``classify``, ``evaluate(classification=True)``,
-``inference`` and whole-state checkpoints. Not yet: sampling (ROADMAP A7),
-so ``train_loop`` takes no ``plot_function``; the multi-process paths
+Ported: construction (schedule, encoder, denoiser, classifier, sampler,
+in-graph Haar DWT), seeded ``init_params``, the train state (training
+parameters, an EMA copy, Adam's state, step and EMA counters),
+``train_step``, ``loss``, ``train_loop`` (epochs, log cadence, eval every
+``save_image_epochs`` with the sampled images handed to ``plot_function``,
+best-metric checkpoints, resume, the save on SIGTERM/SIGINT), ``classify``,
+``sample``, ``evaluate`` and ``inference`` (by classification or by
+sampling) and whole-state checkpoints. Not yet: the multi-process paths
 (ROADMAP A10).
 
-As in the JAX engine, classify and evaluate run on the EMA parameters
-(``state.ema_model``); ``loss`` and the train step on the training
-parameters (``denoiser``). With the EMA ramp at its start the EMA is a
-straight copy for the first ``ema_warmup`` updates.
+As in the JAX engine, classify, sample and evaluate run on the EMA
+parameters (``state.ema_model``); ``loss`` and the train step on the
+training parameters (``denoiser``). With the EMA ramp at its start the EMA
+is a straight copy for the first ``ema_warmup`` updates. A backbone with a
+prefix split (the UNet) shares its condition-free prefix across the
+candidate classes in classify and across the CFG pair in sampling.
 
 The device is explicit (``device=``, default ``"cuda"``): nothing moves to
-the CPU because no GPU was found. The classifier's and the train step's
-draws come from one ``torch.Generator`` on that device seeded with
-``config.seed``; parameter init uses a CPU generator with the same seed, so
-the weights do not depend on the device. Weights and draws differ from the
+the CPU because no GPU was found. The classifier's, the sampler's and the
+train step's draws come from one ``torch.Generator`` on that device seeded
+with ``config.seed``; parameter init uses a CPU generator with the same
+seed, so the weights do not depend on the device. Weights and draws differ from the
 JAX package's for the same seed (different generators); the parity tests
 inject both.
 """
@@ -36,12 +38,14 @@ import numpy as np
 import torch
 
 from ..diffusion.classify import TorchDraws, make_classifier
+from ..diffusion.sampler import TorchSampleDraws, make_sampler
 from ..diffusion.schedule import make_schedule_fn
 from ..models.encoders import make_encoder
+from ..models.layers import reset_parameters
 from ..ops.wavelet import haar_dwt2
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.tracking import make_tracker
-from .denoiser import Denoiser
+from .denoiser import Denoiser, supports_prefix
 from .state import EmaConfig, init_train_state, lr_at, make_optimizer
 from .steps import TorchTrainDraws, make_loss_fn, make_train_step
 
@@ -68,7 +72,12 @@ class DiffusionClassifier:
         self.schedule_fn = make_schedule_fn(
             config.schedule, config.noise_d, config.image_size
         )
-        encoder, self.null_token = make_encoder(config.encoder_type, num_classes=config.classes)
+        encoder, self.null_token = make_encoder(
+            config.encoder_type,
+            num_classes=config.classes,
+            embedding_dim=getattr(getattr(backbone, "config", None), "encoder_hid_dim", None),
+            dtype=torch.bfloat16 if config.mixed_precision == "bf16" else torch.float32,
+        )
         self.denoiser = Denoiser(backbone, encoder)
         self.ema_cfg = EmaConfig(
             beta=config.ema_beta,
@@ -81,8 +90,26 @@ class DiffusionClassifier:
         self._loss_eval = make_loss_fn(
             self.denoiser, self.schedule_fn, cfg_dropout=0.0, **loss_kw
         )
+        apply_fn = lambda z, logsnr, labels: self.state.ema_model(z, logsnr, labels)  # noqa: E731
+        encode_fn = tail_fn = None
+        if supports_prefix(backbone):
+            encode_fn = lambda z, logsnr: self.state.ema_model(z, logsnr, None, mode="encode")  # noqa: E731
+            tail_fn = lambda state, labels: self.state.ema_model(  # noqa: E731
+                None, None, labels, mode="tail", prefix_state=state
+            )
+        self._encode, self._tail = encode_fn, tail_fn
+        self._sample_impl = make_sampler(
+            apply_fn,
+            self.schedule_fn,
+            pred_param=config.pred_param,
+            cfg_w=config.cfg_w,
+            null_token=self.null_token,
+            sampling_steps=config.sampling_steps,
+            encode_fn=encode_fn,
+            tail_fn=tail_fn,
+        )
         self._classify_impl = make_classifier(
-            lambda z, logsnr, labels: self.state.ema_model(z, logsnr, labels),
+            apply_fn,
             self.schedule_fn,
             pred_param=config.pred_param,
             num_classes=config.classes,
@@ -94,6 +121,8 @@ class DiffusionClassifier:
             eval_group=config.classify_chunk,
             class_chunk=config.classify_class_chunk,
             scan_unroll=config.classify_scan_unroll,
+            encode_fn=encode_fn,
+            tail_fn=tail_fn,
         )
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.state = None
@@ -118,6 +147,8 @@ class DiffusionClassifier:
             return
         gen = torch.Generator().manual_seed(self.config.seed)
         self.denoiser.backbone.reset_parameters(gen)
+        if self.denoiser.encoder is not None:
+            reset_parameters(self.denoiser.encoder, gen)
         self.denoiser.to(self.device)
         print(f"Parameter count: {sum(p.numel() for p in self.denoiser.parameters())}")
         self.state = init_train_state(self.denoiser)
@@ -159,6 +190,20 @@ class DiffusionClassifier:
         draws = draws if draws is not None else TorchDraws(self.generator)
         return self._classify_impl(x, self._labels(labels), draws)
 
+    def sample(self, x, labels=None, from_t: float = 1.0, *, draws=None) -> torch.Tensor:
+        """CFG ancestral sampling on the EMA parameters; ``from_t < 1`` re-noises ``x`` first.
+
+        Returns a device tensor in ``[-1, 1]``, in the Haar domain when
+        ``wavelet_transform`` is set (as the JAX engine's). ``draws``
+        overrides the generator.
+        """
+        self._require_state()
+        x = self._images(x)
+        if labels is None:
+            labels = np.zeros((x.shape[0],), np.int64)
+        draws = draws if draws is not None else TorchSampleDraws(self.generator)
+        return self._sample_impl(x, self._labels(labels), draws, from_t=float(from_t))
+
     @torch.no_grad()
     def loss(self, x, labels=None, *, draws=None) -> torch.Tensor:
         """Diffusion loss of one batch on the training parameters, without CFG dropout.
@@ -179,10 +224,9 @@ class DiffusionClassifier:
         stop_idx: Optional[int] = None,
         metrics: Optional[Sequence] = None,
         classification: bool = False,
+        from_t: float = 1.0,
     ):
-        """Classify val batches and update metrics; ``stop_idx`` runs ``stop_idx + 1`` batches."""
-        if not classification:
-            raise NotImplementedError("evaluation by sampling needs the sampler (ROADMAP A7)")
+        """Classify, or sample from, val batches and update metrics; ``stop_idx`` runs ``stop_idx + 1`` batches."""
         show = self.config.progress
         if show is None:
             show = sys.stderr.isatty()
@@ -197,11 +241,15 @@ class DiffusionClassifier:
         for idx, batch in enumerate(val_loader):
             if show:
                 print(
-                    f"\rclassify batch {idx + 1}/{total if total else '?'}",
+                    f"\r{'classify' if classification else 'sample'} batch "
+                    f"{idx + 1}/{total if total else '?'}",
                     end="", file=sys.stderr, flush=True,
                 )
             self.init_params(batch)
-            out = self.classify(batch["images"], batch["prompt"]).cpu()
+            if classification:
+                out = self.classify(batch["images"], batch["prompt"]).cpu()
+            else:
+                out = self.sample(batch["images"], batch["prompt"], from_t=from_t).cpu()
             if metrics is not None:
                 for metric in metrics:
                     metric.update((out, batch))
@@ -221,11 +269,11 @@ class DiffusionClassifier:
         checkpoint_metric: Optional[str] = None,
         plot_function: Optional[Callable] = None,
     ):
-        """Epoch training loop with eval cadence, best-metric checkpoints, tracking and resume."""
-        if plot_function is not None:
-            raise NotImplementedError(
-                "plot_function needs sampled images: the sampler is not ported yet (ROADMAP A7)"
-            )
+        """Epoch training loop with eval cadence, best-metric checkpoints, tracking and resume.
+
+        At each eval, ``plot_function(output_dir=, batches=, samples=, epoch=,
+        process_idx=)`` gets images sampled from the val batches, when given.
+        """
         cfg = self.config
         steps_per_epoch = len(train_dataloader)
         total_steps = steps_per_epoch * cfg.num_epochs
@@ -309,7 +357,18 @@ class DiffusionClassifier:
 
                 if epoch % cfg.save_image_epochs == 0 or epoch == cfg.num_epochs - 1:
                     eval_start = time.time()
-                    # the sampling pass only feeds plot_function, which is None here
+                    # the sampling pass only feeds plot_function: skipped without one
+                    image_path = None
+                    if plot_function is not None:
+                        samples, batches, _ = self.evaluate(
+                            val_dataloader, stop_idx=cfg.evaluation_batches
+                        )
+                        images_path = os.path.join(cfg.experiment_path, "training_images")
+                        os.makedirs(images_path, exist_ok=True)
+                        image_path = plot_function(
+                            output_dir=images_path, batches=batches, samples=samples,
+                            epoch=epoch, process_idx=0,
+                        )
                     _, _, metrics = self.evaluate(
                         val_dataloader,
                         stop_idx=cfg.evaluation_batches,
@@ -330,6 +389,8 @@ class DiffusionClassifier:
                             tracker.log_metrics(
                                 {f"val_{k}": v for k, v in metric_output.items()}, step=epoch
                             )
+                            if image_path is not None:
+                                tracker.log_image(f"Sample at epoch {epoch}", image_path)
                         baseline = (
                             1 / cfg.n_fast_classes if cfg.fast_classification else 1 / cfg.classes
                         )
@@ -347,19 +408,20 @@ class DiffusionClassifier:
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
 
-    def sample(self, *args, **kwargs):
-        raise NotImplementedError("sampling is not ported yet (ROADMAP A7)")
-
     def inference(
         self,
         val_dataloader,
         metrics: Optional[Sequence] = None,
+        plot_function: Optional[Callable] = None,
         classification: bool = False,
+        from_t: float = 1.0,
         checkpoint_folder: str = "checkpoints",
     ):
-        """Load a checkpoint's EMA parameters and evaluate the val loader."""
-        if not classification:
-            raise NotImplementedError("inference by sampling needs the sampler (ROADMAP A7)")
+        """Load a checkpoint's EMA parameters and classify, or sample from, the val loader.
+
+        When sampling, ``plot_function`` gets the samples, written under
+        ``<experiment>/inference_images/``.
+        """
         cfg = self.config
         self.init_params(_first_batch(val_dataloader, "val"))
         self.load_checkpoint(
@@ -369,8 +431,15 @@ class DiffusionClassifier:
             val_dataloader,
             metrics=metrics,
             stop_idx=cfg.evaluation_batches,
-            classification=True,
+            classification=classification,
+            from_t=from_t,
         )
+        if plot_function is not None and not classification:
+            out_dir = os.path.join(cfg.experiment_path, "inference_images")
+            os.makedirs(out_dir, exist_ok=True)
+            plot_function(
+                output_dir=out_dir, batches=batches, samples=val_samples, epoch=0, process_idx=0
+            )
         if metrics is None:
             return val_samples, batches
         metric_output = []

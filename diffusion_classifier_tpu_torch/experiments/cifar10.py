@@ -1,0 +1,68 @@
+"""Shared setup for the cifar10 experiment — port of ``experiments/cifar10/common.py``.
+
+The conditional UNet of the reference's CIFAR-10 experiment (the JAX
+package's flagship): blocks (128, 128, 256, 512), two resnets a level,
+plain down levels 0-1 (the condition-free prefix) and cross-attention at
+levels 2-3 and the mid block (8 heads: 64 tokens × D=32 at level 2, 16
+tokens × D=64 at level 3), cross-attention dim 128 over a ``'nn'`` class
+embedding of width 128 with ``text_proj``. Synthetic data only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..data.synthetic import SyntheticDataLoader
+from ..engine import DiffusionClassifier
+from ..models.unet import UNetCondition2D, UNetConfig
+from ..utils.config import ExperimentConfig
+
+__all__ = ["build_backbone", "build_data", "build_engine"]
+
+
+def build_backbone(config: ExperimentConfig) -> UNetCondition2D:
+    dtype = torch.bfloat16 if config.mixed_precision == "bf16" else torch.float32
+    return UNetCondition2D(
+        UNetConfig(
+            sample_size=config.image_size,
+            in_channels=config.image_channels,
+            out_channels=config.image_channels,
+            layers_per_block=2,
+            block_out_channels=(128, 128, 256, 512),
+            down_block_types=(
+                "DownBlock2D", "DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D",
+            ),
+            up_block_types=(
+                "CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D", "UpBlock2D",
+            ),
+            encoder_hid_dim=128,
+            encoder_hid_dim_type="text_proj",
+            cross_attention_dim=128,
+            attn_backend=config.attn_backend,
+            remat=config.remat,
+        ),
+        dtype=dtype,
+    )
+
+
+def build_data(config: ExperimentConfig) -> SyntheticDataLoader:
+    if config.data_path != "synthetic":
+        raise NotImplementedError(
+            "the CIFAR-10 loader is not wired into the port yet (ROADMAP A11); "
+            "use data_path 'synthetic'"
+        )
+    return SyntheticDataLoader(
+        512, 128,
+        batch_size=config.batch_size,
+        image_size=config.image_size,
+        channels=config.image_channels,
+        classes=config.classes,
+        seed=config.seed,
+    )
+
+
+def build_engine(config: ExperimentConfig, device="cuda") -> DiffusionClassifier:
+    # encoder_type='nn': labels become a one-token context for the cross-attention
+    if config.encoder_type != "nn":
+        raise ValueError("cifar10 uses encoder_type='nn'")
+    return DiffusionClassifier(build_backbone(config), config, device=device)

@@ -34,7 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
-from .layers import Dense, TimestepEmbedding, lecun_normal_, sinusoidal_embedding
+from .layers import Dense, TimestepEmbedding, layer_norm, lecun_normal_, sinusoidal_embedding
 
 __all__ = ["DiT", "DiTBlock", "DiTConfig", "get_2d_sincos_pos_embed"]
 
@@ -82,14 +82,6 @@ class DiTConfig:
     @property
     def out_ch(self) -> int:
         return self.out_channels if self.out_channels is not None else self.in_channels
-
-
-def layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """flax ``LayerNorm(use_bias=False, use_scale=False, dtype=float32)``: float32 out."""
-    xf = x.to(torch.float32)
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-    return (xf - mean) * torch.rsqrt(var + eps)
 
 
 def _modulate(x, shift, scale):

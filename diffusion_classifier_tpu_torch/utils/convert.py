@@ -4,10 +4,15 @@ Input: the JAX package's parameter tree as nested dicts of numpy arrays
 (``{"params": {...}}`` or its inside). Leaf rules:
 
 - Dense ``kernel [in, out]`` → ``weight [out, in]``;
-- Conv ``kernel [kh, kw, in, out]`` (HWIO) → the patch ``Dense`` weight
-  ``[out, kh·kw·in]``: the port writes the DiT patchify as reshape +
-  matmul over ``(kh, kw, in)`` (an OIHW rule comes with the UNet's convs);
-- ``Embed.embedding`` → ``weight``; ``bias`` → ``bias``;
+- Conv ``kernel [kh, kw, in, out]`` (HWIO) → ``weight [out, in, kh, kw]``
+  (OIHW) when the port's parameter is 4-D; otherwise the patch ``Dense``
+  weight ``[out, kh·kw·in]``: the port writes the DiT patchify as reshape +
+  matmul over ``(kh, kw, in)``;
+- ``Embed.embedding`` → ``weight``; norm ``scale`` → ``weight``; ``bias`` →
+  ``bias``;
+- the resnet blocks' flat names ``<part>_kernel``/``_scale``/``_bias``
+  (``norm1_scale``, ``conv1_kernel``, ``shortcut_kernel``,
+  ``time_emb_bias``, ...) → ``<part>.weight``/``.bias``;
 - flax's ``block_<i>`` names → the port's ``blocks.<i>``.
 
 Every leaf must land on a parameter of the module with the same number of
@@ -25,7 +30,7 @@ from torch import nn
 
 __all__ = ["flax_to_state_dict"]
 
-_LEAF = {"kernel": "weight", "embedding": "weight", "bias": "bias"}
+_LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict:
@@ -41,16 +46,22 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict:
 
 def _torch_name(path: tuple) -> str:
     *mods, leaf = path
+    flat = re.fullmatch(r"(\w+)_(kernel|scale|bias)", leaf)
+    if flat:  # a resnet block's flat parameter name
+        mods, leaf = mods + [flat.group(1)], flat.group(2)
     if leaf not in _LEAF:
         raise KeyError(f"unknown flax leaf {'/'.join(path)}")
     mods = [re.sub(r"^block_(\d+)$", r"blocks.\1", m) for m in mods]
     return ".".join(mods + [_LEAF[leaf]])
 
 
-def _convert_leaf(leaf: str, value: np.ndarray) -> np.ndarray:
-    if leaf == "kernel":  # Dense [in, out], or a conv HWIO flattened over (h, w, in)
-        return value.reshape(-1, value.shape[-1]).T
-    return value
+def _convert_leaf(leaf: str, value: np.ndarray, target_ndim: int) -> np.ndarray:
+    if not leaf.endswith("kernel"):
+        return value
+    if value.ndim == 4 and target_ndim == 4:  # conv HWIO -> OIHW
+        return value.transpose(3, 2, 0, 1)
+    # Dense [in, out], or a conv HWIO flattened over (h, w, in)
+    return value.reshape(-1, value.shape[-1]).T
 
 
 def flax_to_state_dict(flax_params: Mapping, module: nn.Module) -> dict:
@@ -65,7 +76,7 @@ def flax_to_state_dict(flax_params: Mapping, module: nn.Module) -> dict:
             extra.append("/".join(path))
             continue
         target = expected[name]
-        arr = _convert_leaf(path[-1], value)
+        arr = _convert_leaf(path[-1], value, target.ndim)
         if tuple(arr.shape) != tuple(target.shape):
             raise ValueError(
                 f"{'/'.join(path)}: converted shape {arr.shape} != {name} "

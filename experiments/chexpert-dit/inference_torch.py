@@ -1,9 +1,12 @@
 """CheXpert DiT inference on the PyTorch/CUDA port (mirrors inference.py).
 
-Reads the same ``INFERENCE_CONFIG`` JSON, loads the torch checkpoint from
-``<project_root>/<experiment_dir>/<checkpoint_folder>/`` and prints the
-classification metrics. Imports only the port; ``--device`` picks the torch
-device (default ``cuda``).
+Reads the same ``INFERENCE_CONFIG`` JSON and loads the torch checkpoint
+from ``<project_root>/<experiment_dir>/<checkpoint_folder>/``. With
+``classification=true`` it prints the classification metrics; otherwise it
+samples one image per test image (CFG, the config's ``sampling_steps``)
+and hands them to the CheXpert plotter (inverse DWT, one figure per batch).
+Imports only the port; ``--device`` picks the torch device (default
+``cuda``).
 
     INFERENCE_CONFIG='{"data_path": "synthetic", "image_size": 256, ...}' \\
         python experiments/chexpert-dit/inference_torch.py
@@ -28,17 +31,27 @@ from diffusion_classifier_tpu_torch.utils.metrics import (  # noqa: E402
     Precision,
     Recall,
 )
+from diffusion_classifier_tpu_torch.utils.plotters import make_chexpert_plotter  # noqa: E402
 
 
-def main(argv=None):
+def main(argv=None, plot_function=None):
+    """Returns ``(metric_output, predictions, batches)``, or ``(samples, batches)`` when sampling.
+
+    ``plot_function`` defaults to the CheXpert plotter.
+    """
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     config = ExperimentConfig.from_env("INFERENCE_CONFIG")
-    if not config.classification:
-        raise NotImplementedError("sampling inference is not ported yet (ROADMAP A7)")
     data = build_data(config)
     engine = build_engine(config, device=args.device)
+    if not config.classification:
+        return engine.inference(
+            val_dataloader=data.get_test_loader(),
+            plot_function=plot_function or make_chexpert_plotter(config),
+            classification=False,
+            checkpoint_folder=config.checkpoint_folder,
+        )
     metrics = [Accuracy("accuracy"), F1("f1"), Precision("precision"), Recall("recall")]
     metric_output, val_samples, batches = engine.inference(
         val_dataloader=data.get_test_loader(),

@@ -71,6 +71,21 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     torch.testing.assert_close(got, fa.flash_attention_reference(q, k, v), **TOL[dtype])
 
 
+# the UNet's short sequences (16 tokens: shorter than one 64-row K/V tile,
+# and most q warps without a row; 64 tokens at D=32: one tile), with q, k, v
+# separate projections as the UNet's to_q/to_k/to_v give them
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 16, 8, 64), (2, 64, 8, 32), (3, 16, 2, 32)])
+def test_kernel_matches_plain_version_at_unet_shapes(cuda, shape, dtype):
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda").to(dtype) for _ in range(3))
+    before = fa.FLASH_FWD.launches, fa.FLASH_FWD.copies
+    got = attention(q, k, v, backend="auto")
+    torch.cuda.synchronize()
+    assert (fa.FLASH_FWD.launches - before[0], fa.FLASH_FWD.copies - before[1]) == (1, 0)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got, fa.flash_attention_reference(q, k, v), **TOL[dtype])
+
+
 @pytest.mark.parametrize("shape,dtype", BWD_CASES[1:])
 def test_forward_lse_is_the_row_logsumexp_in_log2(cuda, shape, dtype):
     q, k, v = _strided_qkv(shape, dtype, cuda)

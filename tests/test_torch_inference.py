@@ -102,9 +102,13 @@ def test_engine_refuses_what_is_not_ported():
         DiT(DiTConfig(**TINY)), ExperimentConfig.from_dict(dict(CONFIG)), device="cpu"
     )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.sample()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.train_loop([], [], plot_function=print)
+        DiffusionClassifier(
+            DiT(DiTConfig(**TINY)),
+            ExperimentConfig.from_dict(dict(CONFIG, encoder_type="t5")),
+            device="cpu",
+        )
+    with pytest.raises(RuntimeError, match="initialize"):
+        eng.sample(np.zeros((1, 32, 32, 3), np.float32))
     with pytest.raises(RuntimeError, match="initialize"):
         eng.classify(np.zeros((1, 32, 32, 3), np.float32))
     with pytest.raises(RuntimeError, match="initialize"):
