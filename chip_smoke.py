@@ -12,8 +12,8 @@ sampling through ``experiments/chexpert-dit/inference_torch.py`` and
 training through ``experiments/chexpert-dit/train_torch.py``; the CIFAR-10
 flagship UNet (blocks 128/128/256/512, 95.9 M parameters; attention at 64
 tokens × D=32 and 16 tokens × D=64) ELBO classification with the shared
-prefix and CFG sampling through ``experiments/cifar10/inference_torch.py``.
-Phases:
+prefix and CFG sampling through ``experiments/cifar10/inference_torch.py``,
+and its training through ``experiments/cifar10/train_torch.py``. Phases:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: compiles both kernels, prints the seconds, ptxas' register use and
@@ -37,10 +37,10 @@ Phases:
 7. full-width DiT-b4 gradients at B=16, kernels vs plain attention on the
    same weights and draws: relative L2 ≤ 2e-2, 12 + 12 launches;
 8. the training entry point: ``train_torch.main()`` for one epoch (16 steps
-   at B=16) with its eval, launch counts, no alignment copy, a finite loss
-   at every step, a checkpoint that ``inference_torch.main()`` reads back;
-   then the median step time, images/s and one profiler trace of a warm
-   step;
+   at B=16) with its eval (the numpy plot function, sampling cut to 8
+   steps), launch counts, no alignment copy, a finite loss at every step, a
+   checkpoint that ``inference_torch.main()`` reads back; then the median
+   step time, images/s and one profiler trace of a warm step;
 9. forward kernel vs its plain version at the UNet's shapes, separate
    q/k/v as its projections give them, bf16 and fp32, no alignment copy,
    each timed in turns with SDPA as in phase 3, with the plain version's
@@ -59,7 +59,22 @@ Phases:
     and tail on 2B each step) and DiT-b4 at B=16 (one 2B forward each
     step), output finite in [-1, 1], forwards and launches counted; then
     samples/s, device time and idle share, and a profiler table of one
-    sampling step.
+    sampling step;
+13. backward kernel vs its plain version at the UNet's training shapes
+    ((64, 64, 8, 32) and (64, 16, 8, 64), separate q/k/v, bf16 and fp32, no
+    alignment copy), timed as in phase 9 against SDPA's backward;
+14. one loss and backward of the full-width flagship at B=64, kernels vs
+    plain attention: fp32 gradients within 1e-4 (relative L2), bf16 within
+    the network's bf16 noise floor (plain bf16 vs plain fp32); launches
+    (11, 11), (22, 11) with remat, none with ``attn_backend='xla'``; remat
+    gives the same loss and gradients within 1e-6;
+15. CIFAR training through ``experiments/cifar10/train_torch.py`` (one
+    epoch, 8 steps at B=64, its eval cut to 4 evaluations and 8 sampling
+    steps, the numpy plot function): a finite loss a step, 11 backward
+    launches a step, the checkpoint files, then ``inference_torch.main()``
+    on that checkpoint; then the step alone (10 warm steps at B=64: ms,
+    images/s, peak memory, with Adam's moments in fp32 and in bf16) and a
+    profiler table of one warm step with the device's idle share.
 
 Each path's launch and copy counts are set to 0 just before it runs and read
 just after. Any failed check raises and exits non-zero. The second-to-last line
@@ -68,6 +83,8 @@ is the kernels' JSON record; the last line is
 Imports nothing of JAX, and nothing of the JAX package.
 """
 
+import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -154,11 +171,22 @@ CIFAR_CONFIG = {
 }
 SAMPLE_STEPS = 128  # the config default
 # one epoch of the synthetic set's 256 train images: 16 steps at B=16; the
-# loss goes to track.jsonl at every step
+# loss goes to track.jsonl at every step; the eval's samples for the plot
+# function cut to 8 steps (the config's 128 would add ~5 s)
 TRAINING_CONFIG = dict(
     INFERENCE_CONFIG, num_epochs=1, log_every_steps=1, use_comet=True,
-    experiment_dir="chexpert-dit-train",
+    experiment_dir="chexpert-dit-train", sampling_steps=8,
 )
+# the flagship's training: one epoch of the synthetic set's 512 train images,
+# 8 steps at the config's B=64; the eval classifies the 2 val batches at 4
+# evaluations (CIFAR_CONFIG) and samples them at 8 steps for the plot
+CIFAR_TRAINING_CONFIG = dict(
+    CIFAR_CONFIG, num_epochs=1, log_every_steps=1, use_comet=True,
+    experiment_dir="cifar10-train", sampling_steps=8,
+)
+# the backward's UNet shapes: the train batch of 64 at level 2 (64 tokens x
+# D=32) and at level 3 and mid (16 tokens x D=64)
+UNET_BWD_SHAPES = [(64, 64, 8, 32), (64, 16, 8, 64)]
 
 
 def check(cond, msg):
@@ -545,20 +573,24 @@ def phase_train(fa, config_cls, workdir):
     cfg = dict(TRAINING_CONFIG, project_root=workdir)
     train_torch = load_script("train_torch")
     os.environ["TRAINING_CONFIG"] = json.dumps(cfg)
+    saved = []
     reset_counts(fa)
     start = time.perf_counter()
-    engine = train_torch.main([])
+    # the numpy plot function (the card's machine may lack matplotlib), fed
+    # by the eval's sampling pass at the config's cut 8 steps
+    engine = train_torch.main([], plot_function=numpy_plotter(saved))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     fwd, bwd = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
     check_no_copies(fa, "[8 train]")
+    check(len(saved) == 1 and os.path.isfile(saved[0]), "the plot function did not run")
     config = config_cls.from_dict(dict(cfg))
     steps = 256 // config.batch_size
     exp = config.experiment_path
     with open(os.path.join(exp, "track.jsonl")) as f:
         events = [json.loads(line) for line in f]
     losses = [e["value"] for e in events if e.get("name") == "loss" and e.get("step") is not None]
-    print(f"[8 train] train_torch.main(): {len(losses)} steps in {seconds:.1f} s (eval and checkpoint included); launches fwd {fwd} bwd {bwd}; loss first {losses[0]:.5f} last {losses[-1]:.5f}")
+    print(f"[8 train] train_torch.main(plot_function=numpy plotter, sampling_steps {cfg['sampling_steps']}): {len(losses)} steps in {seconds:.1f} s (eval, sampling for the plot and checkpoint included); launches fwd {fwd} bwd {bwd}; loss first {losses[0]:.5f} last {losses[-1]:.5f}; plot {saved}")
     check(len(losses) == steps, f"{len(losses)} logged losses, expected {steps}")
     check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
     check(bwd == 12 * steps, f"{bwd} backward launches for {steps} steps, expected {12 * steps}")
@@ -884,6 +916,192 @@ def phase_sampling(fa, cifar, chexpert, config_cls, workdir):
     return launches, rates
 
 
+def phase_unet_backward(fa):
+    """The backward kernel vs its plain version at the UNet's shapes; returns the per-shape records."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    records = []
+    for shape in UNET_BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            # separate q, k, v, as to_q/to_k/to_v give them
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+            out, lse = fa.FLASH_FWD(q, k, v, lse=True)
+            reset_counts(fa)
+            got = fa.FLASH_BWD(q, k, v, out, do, lse)
+            torch.cuda.synchronize()
+            check(fa.FLASH_BWD.copies == 0, f"the backward copied an input at {shape}")
+            want = fa.flash_attention_bwd_reference(q, k, v, do, out)
+            errs = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                check(g.dtype == dtype and g.shape == q.shape and bool(torch.isfinite(g).all()),
+                      f"{name} {g.dtype} {g.shape} at {shape}")
+                errs.append((g.float() - w.float()).abs().max().item())
+                torch.testing.assert_close(g, w, **TOL[dtype], msg=lambda m: f"{name} at {shape}: {m}")
+            b, s, h, d = shape
+            record = {"shape": list(shape), "dtype": str(dtype)[6:], "qkv": "separate", "max_abs_err": max(errs)}
+            plain = lambda: fa.flash_attention_bwd_reference(q, k, v, do, out)  # noqa: E731
+            kernel = lambda: fa.FLASH_BWD(q, k, v, out, do, lse)  # noqa: E731
+            record["plain_ms"] = cuda_ms(plain, inner=BACK_TO_BACK)
+            qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+            doh = do.transpose(1, 2).contiguous()
+            sdpa = lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True)  # noqa: E731
+            timed_in_turns(record, kernel, sdpa)
+            record["device_ms"] = device_ms(kernel)
+            record["library_device_ms"] = device_ms(sdpa)
+            record["plain_device_ms"] = device_ms(plain)
+            # in: q, k, v, o, dO and the fp32 lse; out: dq, dk, dv
+            nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+            record["bound_ms"], record["bound_by"] = bound(10 * b * h * s * s * d, nbytes, dtype)
+            print(f"[13 unet backward] {shape} {record['dtype']}: max |kernel - plain| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (atol {TOL[dtype]['atol']}, rtol {TOL[dtype]['rtol']}); device time kernel {record['device_ms']:.4f} ms, SDPA backward {record['library_device_ms']:.4f} ms, plain {record['plain_device_ms']:.4f} ms; CUDA events over back-to-back calls kernel {record['ms']:.4f} ms, SDPA backward {record['library_ms']:.4f} ms (kernel/SDPA {record['library_ratio']:.3f}), plain {record['plain_ms']:.4f} ms; single calls kernel {record['call_ms']:.4f} ms, SDPA backward {record['library_call_ms']:.4f} ms; host {record['host_us']:.1f} us a call; bound {record['bound_ms']:.5f} ms ({record['bound_by']})")
+            records.append(record)
+    return records
+
+
+def phase_unet_grads(fa, cifar, config_cls):
+    """One loss and backward of the full-width flagship at B=64: kernels vs plain attention, remat on vs off.
+
+    As phase 10 holds the forward, the bf16 kernel gradients are held to the
+    network's own bf16 noise floor, measured here as the distance between
+    the plain bf16 and the plain fp32 gradients; fp32 kernel gradients to
+    the plain fp32 ones at 1e-4; remat to no remat at 1e-6 in fp32. cuDNN
+    runs its deterministic algorithms here (its default backward ones sum
+    in a varying order), and a second fp32 run without remat gives the
+    run-to-run spread beside the remat distance.
+    """
+    from diffusion_classifier_tpu_torch.diffusion.schedule import make_schedule_fn
+    from diffusion_classifier_tpu_torch.engine.steps import make_loss_fn
+
+    config = config_cls.from_dict(dict(CIFAR_CONFIG))
+    schedule = make_schedule_fn(config.schedule, config.noise_d, config.image_size)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b = config.batch_size
+    x = torch.rand((b, 32, 32, 3), generator=gen, device="cuda") * 2 - 1
+    y = torch.randint(0, 10, (b,), generator=gen, device="cuda")
+    u, t = torch.rand((b,), generator=gen, device="cuda"), torch.rand((b,), generator=gen, device="cuda")
+    eps = torch.randn(x.shape, generator=gen, device="cuda")
+    # (precision, backend, run): "remat" recomputes the blocks, "again" repeats "once"
+    runs = [(p, bk, "once") for p in ("bf16", "no") for bk in ("auto", "xla")]
+    runs += [("no", "auto", "remat"), ("no", "auto", "again")]
+    results, models = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for precision, backend, run in runs:
+            if precision not in models:  # the same seeded weights in either precision
+                models = {precision: flagship(cifar, config_cls, precision)}
+            model = models[precision]
+            unet_cfg = dataclasses.replace(model.backbone.config, remat=run == "remat")
+            model.backbone.config = unet_cfg
+            set_attn_backend(model, backend)
+            loss_fn = make_loss_fn(model, schedule, pred_param=config.pred_param, null_token=10)
+            model.zero_grad(set_to_none=True)
+            reset_counts(fa)
+            loss = loss_fn(x, y, u, t, eps)
+            loss.backward()
+            torch.cuda.synchronize()
+            launches = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
+            check_no_copies(fa, f"[14 unet grads] {precision} {backend} {run}")
+            grads = torch.cat([p.grad.flatten() for p in model.parameters()])
+            check(math.isfinite(loss.item()) and bool(torch.isfinite(grads).all()), "non-finite loss or gradient")
+            results[precision, backend, run] = (loss.item(), grads, launches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del models
+
+    def rel(a, ref):
+        return ((a - ref).norm() / ref.norm()).item()
+
+    g = {key: r[1] for key, r in results.items()}
+    floor = rel(g["bf16", "xla", "once"], g["no", "xla", "once"])
+    rel_bf16 = rel(g["bf16", "auto", "once"], g["bf16", "xla", "once"])
+    rel32 = rel(g["no", "auto", "once"], g["no", "xla", "once"])
+    rel_remat = rel(g["no", "auto", "remat"], g["no", "auto", "once"])
+    rel_again = rel(g["no", "auto", "again"], g["no", "auto", "once"])
+    loss_off, loss_on = results["no", "auto", "once"][0], results["no", "auto", "remat"][0]
+    counts = {" ".join(key): res[2] for key, res in results.items()}
+    print(f"[14 unet grads] flagship loss+backward B={b}: launches (fwd, bwd) {counts}; rel L2 of {g['no', 'xla', 'once'].numel()} parameter gradients: bf16 kernel vs bf16 plain {rel_bf16:.3e}, bf16 plain vs fp32 plain {floor:.3e} (the bf16 floor), fp32 kernel vs fp32 plain {rel32:.3e} (limit 1e-4), fp32 remat vs no remat {rel_remat:.3e} (limit 1e-6), fp32 no remat run twice {rel_again:.3e}; fp32 loss remat {loss_on!r}, no remat {loss_off!r}")
+    for (precision, backend, run), (_, _, launches) in results.items():
+        want = (0, 0) if backend == "xla" else (22, 11) if run == "remat" else (11, 11)
+        check(launches == want, f"{precision} {backend} {run}: launches {launches}, expected {want}")
+    check(rel_bf16 <= floor, f"bf16 kernel gradients vs plain {rel_bf16} above the bf16 floor {floor}")
+    check(rel32 <= 1e-4, f"fp32 kernel gradients vs plain: relative L2 {rel32} > 1e-4")
+    check(abs(loss_on - loss_off) <= 1e-6 * abs(loss_off), f"remat changed the loss: {loss_on} vs {loss_off}")
+    check(rel_remat <= 1e-6, f"remat changed the gradients: relative L2 {rel_remat} > 1e-6")
+
+
+def phase_unet_train(fa, cifar, config_cls, workdir):
+    """CIFAR training through ``experiments/cifar10/train_torch.py``, inference on its checkpoint, the step alone."""
+    from diffusion_classifier_tpu_torch.data.synthetic import SyntheticDataLoader
+
+    cfg = dict(CIFAR_TRAINING_CONFIG, project_root=workdir)
+    config = config_cls.from_dict(dict(cfg))
+    os.environ["TRAINING_CONFIG"] = json.dumps(cfg)
+    saved = []
+    reset_counts(fa)
+    start = time.perf_counter()
+    engine = load_script("train_torch", "cifar10").main([], plot_function=numpy_plotter(saved))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    fwd, bwd = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
+    check_no_copies(fa, "[15 unet train]")
+    steps = 512 // config.batch_size
+    exp = config.experiment_path
+    with open(os.path.join(exp, "track.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    losses = [e["value"] for e in events if e.get("name") == "loss" and e.get("step") is not None]
+    print(f"[15 unet train] train_torch.main(): cuts: 1 epoch ({steps} steps at B={config.batch_size}), classification eval at {config.evaluation_per_stage[0]} evaluations on {config.evaluation_batches + 1} val batches, sampling_steps {config.sampling_steps} for the plot; {len(losses)} steps in {seconds:.1f} s (eval and checkpoint included); launches fwd {fwd} bwd {bwd}; loss first {losses[0]:.5f} last {losses[-1]:.5f}; plot {saved}")
+    check(len(losses) == steps, f"{len(losses)} logged losses, expected {steps}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    check(bwd == 11 * steps, f"{bwd} backward launches for {steps} steps, expected {11 * steps}")
+    check(fwd > 11 * steps, f"{fwd} forward launches: the training and the eval must both run the kernel")
+    check(len(saved) == 1 and os.path.isfile(saved[0]), "the plot function did not run")
+    for name in ("ema_params.pt", "train_state.pt", "experiment_state.json"):
+        check(os.path.isfile(os.path.join(exp, "checkpoints", name)), f"no checkpoints/{name}")
+    del engine
+    gc.collect()
+
+    os.environ["INFERENCE_CONFIG"] = json.dumps(dict(cfg, use_comet=False))
+    metric_output, preds, _ = load_script("inference_torch", "cifar10").main([])
+    check(len(metric_output) == 1 and len(preds) == config.evaluation_batches + 1,
+          f"inference on the trained checkpoint: {metric_output}")
+    for p in preds:
+        check(tuple(p.shape) == (config.batch_size,) and bool(((p >= 0) & (p < 10)).all()),
+              f"predictions {p.tolist()}")
+    print(f"[15 unet train] inference_torch.main() on the trained checkpoint: {metric_output}")
+
+    # the step alone: CUDA events around warm steps at B=64, Adam's moments in fp32, then bf16
+    batch = next(iter(SyntheticDataLoader(
+        512, 128, batch_size=config.batch_size, image_size=config.image_size,
+        channels=config.image_channels, classes=config.classes, seed=1,
+    ).get_train_loader()))
+    rates = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for state_dtype in ("fp32", "bf16"):
+        engine = cifar.build_engine(config_cls.from_dict(dict(cfg, optimizer_state_dtype=state_dtype)))
+        engine.init_params()
+        engine._build_train_state(total_steps=100)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = cuda_ms(lambda: engine.train_step(batch), reps=10, warmup=2)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # between steps: the parameters, the EMA copy and Adam's moments
+        resident_gb = torch.cuda.memory_allocated() / 1e9
+        tag = f"[15 unet train] step B={config.batch_size}, optimizer state {state_dtype}"
+        print(f"{tag}: median {step_ms:.2f} ms -> {config.batch_size * 1e3 / step_ms:.2f} images/s; peak memory {peak_gb:.3f} GB, resident between steps {resident_gb:.3f} GB")
+        rates[state_dtype] = {"step_ms": step_ms, "images_per_s": config.batch_size * 1e3 / step_ms,
+                              "peak_gb": peak_gb, "resident_gb": resident_gb}
+        if state_dtype == "fp32":
+            busy, cats = profile_table(f"{tag}, one warm step", lambda: engine.train_step(batch))
+            idle = 100 * max(0.0, 1 - busy / step_ms)
+            print(f"{tag}: device busy {busy:.2f} of {step_ms:.2f} ms median wall, idle ~{idle:.1f}%; flash forward {cats['flash forward']:.3f} ms, backward {cats['flash backward']:.3f} ms")
+            rates[state_dtype].update(device_ms=busy, idle_percent=idle)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return fwd, bwd, rates
+
+
 def loaded_from_jax_package():
     root = os.path.join(REPO, "diffusion_classifier_tpu") + os.sep
     return sorted(
@@ -919,6 +1137,11 @@ def main() -> int:
         phase_unet_forward(fa, cifar, ExperimentConfig)
         unet_classify_fwd, unet_rates = phase_unet_classify(fa, cifar, ExperimentConfig, workdir)
         sample_fwd, sample_rates = phase_sampling(fa, cifar, chexpert, ExperimentConfig, workdir)
+        records["flash_attn_bwd"]["shapes"] += phase_unet_backward(fa)
+        phase_unet_grads(fa, cifar, ExperimentConfig)
+        unet_train_fwd, unet_train_bwd, unet_train_rates = phase_unet_train(
+            fa, cifar, ExperimentConfig, workdir
+        )
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
@@ -929,10 +1152,13 @@ def main() -> int:
         "flash_attn_fwd": {
             "classify": classify_fwd, "train": train_fwd, "unet_classify": unet_classify_fwd,
             "unet_sample": sample_fwd["cifar10"], "dit_sample": sample_fwd["chexpert-dit"],
+            "unet_train": unet_train_fwd,
         },
-        "flash_attn_bwd": {"classify": 0, "train": train_bwd},
+        "flash_attn_bwd": {"classify": 0, "train": train_bwd, "unet_train": unet_train_bwd},
     }
-    print(json.dumps({"paths": {"unet_classify": unet_rates, "sample": sample_rates}}))
+    print(json.dumps({"paths": {
+        "unet_classify": unet_rates, "sample": sample_rates, "unet_train": unet_train_rates,
+    }}))
     print(json.dumps({"kernels": [
         {
             "name": name,

@@ -11,6 +11,10 @@ own label table).
 - ``'encode'`` — the condition-free prefix; labels are ignored;
 - ``'tail'`` — encodes the labels and runs the backbone's conditioned
   remainder from ``prefix_state``.
+
+``deterministic`` goes to the backbone in every mode (False turns the UNet's
+dropout on). It defaults to True, and the loss, the classifier and the
+sampler never pass it, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -35,17 +39,21 @@ class Denoiser(nn.Module):
         logsnr_t: Optional[torch.Tensor],
         labels: Optional[torch.Tensor],
         *,
+        deterministic: bool = True,
         mode: str = "full",
         prefix_state=None,
     ):
         if mode == "encode":
-            return self.backbone(z_t, logsnr_t, None, mode="encode")
+            return self.backbone(z_t, logsnr_t, None, deterministic=deterministic, mode="encode")
         cond = self.encoder(labels) if self.encoder is not None else labels
         if mode == "tail":
-            return self.backbone(None, None, cond, mode="tail", prefix_state=prefix_state)
+            return self.backbone(
+                None, None, cond, deterministic=deterministic, mode="tail",
+                prefix_state=prefix_state,
+            )
         if mode != "full":
             raise ValueError(f"unknown mode {mode!r}")
-        return self.backbone(z_t, logsnr_t, cond)
+        return self.backbone(z_t, logsnr_t, cond, deterministic=deterministic)
 
 
 def supports_prefix(backbone) -> bool:

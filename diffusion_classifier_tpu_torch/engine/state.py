@@ -16,6 +16,12 @@ clip_grad_norm_`` adds 1e-6), and optax evaluates the schedule at the
 pre-increment count, so the first step's learning rate is 0 under warmup.
 The updates run as ``torch._foreach_*`` ops on the parameters in place, with
 no host synchronisation: the clip factor stays on the device.
+
+``state_dtype=torch.bfloat16`` is the JAX package's ``compress_opt_state``:
+Adam's ``mu`` and ``nu`` are stored in bf16; each update casts them up to
+fp32, updates the moments and takes the step from the fp32 moments, then
+rounds the new moments to bf16 for storage. The count, the parameters, the
+gradients and the EMA stay as they are.
 """
 
 from __future__ import annotations
@@ -130,16 +136,18 @@ class Optimizer:
         b1: float = 0.9,
         b2: float = 0.999,
         eps: float = 1e-8,
+        state_dtype: torch.dtype = torch.float32,
     ):
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.state_dtype = state_dtype
 
     def init(self, params) -> AdamState:
         params = list(params)
-        return AdamState(
-            0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params]
-        )
+        return AdamState(0, *(
+            [torch.zeros_like(p, dtype=self.state_dtype) for p in params] for _ in range(2)
+        ))
 
     @torch.no_grad()
     def update(self, grads, state: AdamState, params) -> None:
@@ -157,13 +165,27 @@ class Optimizer:
         f = np.float32
         bc1 = float(f(1.0) - f(self.b1) ** f(state.count))
         bc2 = float(f(1.0) - f(self.b2) ** f(state.count))
-        torch._foreach_mul_(state.mu, self.b1)
-        torch._foreach_add_(state.mu, grads, alpha=1.0 - self.b1)
-        torch._foreach_mul_(state.nu, self.b2)
-        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - self.b2)
-        denom = torch._foreach_sqrt(torch._foreach_div(state.nu, bc2))
+        mu, nu = state.mu, state.nu
+        compressed = self.state_dtype != torch.float32
+        if compressed:  # the moments in fp32 for the update
+            mu, nu = [m.float() for m in mu], [n.float() for n in nu]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        if compressed:
+            # store the moments rounded to the state dtype, then take the
+            # step in the fp32 copies' memory
+            torch._foreach_copy_(state.mu, mu)
+            torch._foreach_copy_(state.nu, nu)
+            denom, step = nu, mu
+            torch._foreach_div_(denom, bc2)
+            torch._foreach_div_(step, bc1)
+        else:
+            denom, step = torch._foreach_div(nu, bc2), torch._foreach_div(mu, bc1)
+        torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        step = torch._foreach_div(torch._foreach_div(state.mu, bc1), denom)
+        torch._foreach_div_(step, denom)
         torch._foreach_mul_(step, -lr)
         torch._foreach_add_(params, step)
 
@@ -176,19 +198,23 @@ def make_optimizer(
     max_grad_norm: float = 1.0,
     state_dtype: Optional[str] = None,
 ) -> Optimizer:
-    """Clip-by-global-norm then Adam with the HF cosine warmup; fp32 state only."""
+    """Clip-by-global-norm then Adam with the HF cosine warmup.
+
+    ``state_dtype='bf16'`` stores Adam's moments in bfloat16 (the module
+    docstring); None/'fp32' keeps them in float32.
+    """
     if state_dtype in ("bf16", "bfloat16"):
-        raise NotImplementedError(
-            "optimizer_state_dtype='bf16' (the JAX package's compress_opt_state) is "
-            "not ported yet (ROADMAP A6)"
-        )
-    if state_dtype not in (None, "fp32", "float32", "no"):
+        dtype = torch.bfloat16
+    elif state_dtype in (None, "fp32", "float32", "no"):
+        dtype = torch.float32
+    else:
         raise ValueError(
             f"optimizer_state_dtype must be 'fp32' or 'bf16', got {state_dtype!r}"
         )
     return Optimizer(
         cosine_warmup_schedule(learning_rate, warmup_steps, total_steps),
         max_grad_norm=max_grad_norm,
+        state_dtype=dtype,
     )
 
 

@@ -5,13 +5,16 @@ package's flagship): blocks (128, 128, 256, 512), two resnets a level,
 plain down levels 0-1 (the condition-free prefix) and cross-attention at
 levels 2-3 and the mid block (8 heads: 64 tokens × D=32 at level 2, 16
 tokens × D=64 at level 3), cross-attention dim 128 over a ``'nn'`` class
-embedding of width 128 with ``text_proj``. Synthetic data only.
+embedding of width 128 with ``text_proj``. ``data_path "synthetic"`` gives
+the port's synthetic set (512 train, 128 val images); any other path is read
+as the ``cifar-10-batches-py`` pickles (:mod:`..data.cifar`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..data.cifar import CIFAR10DataLoader
 from ..data.synthetic import SyntheticDataLoader
 from ..engine import DiffusionClassifier
 from ..models.unet import UNetCondition2D, UNetConfig
@@ -45,19 +48,18 @@ def build_backbone(config: ExperimentConfig) -> UNetCondition2D:
     )
 
 
-def build_data(config: ExperimentConfig) -> SyntheticDataLoader:
-    if config.data_path != "synthetic":
-        raise NotImplementedError(
-            "the CIFAR-10 loader is not wired into the port yet (ROADMAP A11); "
-            "use data_path 'synthetic'"
+def build_data(config: ExperimentConfig):
+    if config.data_path == "synthetic":
+        return SyntheticDataLoader(
+            512, 128,
+            batch_size=config.batch_size,
+            image_size=config.image_size,
+            channels=config.image_channels,
+            classes=config.classes,
+            seed=config.seed,
         )
-    return SyntheticDataLoader(
-        512, 128,
-        batch_size=config.batch_size,
-        image_size=config.image_size,
-        channels=config.image_channels,
-        classes=config.classes,
-        seed=config.seed,
+    return CIFAR10DataLoader(
+        config.data_path, config.batch_size, config.num_workers, seed=config.seed
     )
 
 

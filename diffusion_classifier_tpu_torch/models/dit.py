@@ -177,6 +177,8 @@ class DiT(nn.Module):
         x: torch.Tensor,
         noise_labels: torch.Tensor,
         class_labels: Optional[torch.Tensor] = None,
+        *,
+        deterministic: bool = True,  # the flax module's flag; the DiT has no dropout
     ) -> torch.Tensor:
         cfg = self.config
         b, h, w, c = x.shape

@@ -220,6 +220,12 @@ class ResnetBlock2D(nn.Module):
     ``norm1.weight``, ``conv1_kernel`` → ``conv1.weight``,
     ``shortcut_kernel [in, out]`` → ``shortcut.weight [out, in]``,
     ``time_emb_kernel`` → ``time_emb.weight``.
+
+    Dropout (``dropout > 0``, before conv2) applies only under
+    ``deterministic=False``, as in the flax block; the module's
+    ``training`` flag plays no part. Its mask comes from torch's default
+    generator, whose state ``torch.utils.checkpoint`` restores when a
+    rematerialised block is recomputed.
     """
 
     def __init__(
@@ -241,7 +247,8 @@ class ResnetBlock2D(nn.Module):
         ))
 
     def forward(
-        self, x: torch.Tensor, temb: torch.Tensor, skip: Optional[torch.Tensor] = None
+        self, x: torch.Tensor, temb: torch.Tensor, skip: Optional[torch.Tensor] = None,
+        *, deterministic: bool = True,
     ) -> torch.Tensor:
         split = False
         if skip is not None:
@@ -264,8 +271,8 @@ class ResnetBlock2D(nn.Module):
         h = F.silu(group_norm(
             h, self.norm2.weight, self.norm2.bias, num_groups=self.groups, eps=self.norm2.eps
         ))
-        if self.dropout > 0.0:
-            h = F.dropout(h, self.dropout, self.training)
+        if self.dropout > 0.0 and not deterministic:
+            h = F.dropout(h, self.dropout, training=True)
         h = self.conv2(h)
 
         if self.shortcut is None:

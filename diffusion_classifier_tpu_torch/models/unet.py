@@ -19,8 +19,14 @@ flax tree converts leaf for leaf (``utils/convert.py``): ``conv_in``,
 - The cross-attention context has ``context_tokens`` tokens. The class
   embedder gives one, and a one-token cross-attention has no ``to_q``,
   ``to_k`` or ``norm2`` (as the flax tree, which never creates them).
-- ``remat`` (activation recomputation in the backward) comes with UNet
-  training: the flag is accepted, and a forward under grad with it raises.
+- ``remat``: under grad, each resnet block, spatial transformer and
+  self-attention block runs through ``torch.utils.checkpoint`` (the flax
+  module's ``nn.remat`` boundaries): its activations are recomputed in the
+  backward instead of stored. The down/upsample convs, ``conv_in`` and
+  ``conv_out`` stay outside. The recomputation repeats the same operations,
+  so the loss and the gradients do not change (bit for bit on the CPU).
+- ``deterministic=False`` turns the resnet blocks' dropout on (the flax
+  module's flag); the engine never passes it, as the JAX engine does not.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import (
     AttentionBlock2D,
@@ -115,7 +122,8 @@ class UNetCondition2D(nn.Module):
 
     ``context_tokens`` is the length of the cross-attention context (1 for
     the class embedder). ``forward(x, noise_labels, encoder_hidden_states,
-    mode=, prefix_state=)``: see the module docstring for the modes.
+    deterministic=, mode=, prefix_state=)``: see the module docstring for
+    the modes, remat and dropout.
     """
 
     def __init__(self, config: UNetConfig, dtype=torch.float32, *, context_tokens: int = 1):
@@ -190,44 +198,48 @@ class UNetCondition2D(nn.Module):
         """Seeded init with flax's defaults (lecun-normal kernels, zero biases, unit norms)."""
         reset_parameters(self, generator)
 
-    def _down_level(self, i: int, h, skips: list, temb, context):
-        cfg = self.config
-        for j in range(cfg.layers_for(i)):
-            h = getattr(self, f"down_{i}_res_{j}")(h, temb)
-            h = self._attn(f"down_{i}_attn_{j}", h, context)
-            skips.append(h)
-        if i < len(cfg.block_out_channels) - 1:
-            h = getattr(self, f"down_{i}_downsample")(h)
-            skips.append(h)
-        return h
-
-    def _attn(self, name: str, h, context):
-        block = getattr(self, name, None)
-        if isinstance(block, SpatialTransformer):
-            return block(h, context)
-        if isinstance(block, AttentionBlock2D):
-            return block(h)
-        return h
-
     def forward(
         self,
         x: Optional[torch.Tensor],
         noise_labels: Optional[torch.Tensor],
         encoder_hidden_states: Optional[torch.Tensor] = None,
         *,
+        deterministic: bool = True,
         mode: str = "full",
         prefix_state=None,
     ):
         if mode not in ("full", "encode", "tail"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.config
-        if cfg.remat and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "UNet remat (recomputation in the backward) comes with UNet training "
-                "(ROADMAP A3)"
-            )
         chans = tuple(cfg.block_out_channels)
         split = self.prefix_split
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        # one block call: the remat boundary, with the static flags closed over
+        def run(block, *args, **kwargs):
+            if remat:
+                return checkpoint(block, *args, use_reentrant=False, **kwargs)
+            return block(*args, **kwargs)
+
+        def res(name, h, skip=None):
+            return run(getattr(self, name), h, temb, skip, deterministic=deterministic)
+
+        def attn(name, h, context):
+            block = getattr(self, name, None)
+            if isinstance(block, SpatialTransformer):
+                return run(block, h, context)
+            if isinstance(block, AttentionBlock2D):
+                return run(block, h)
+            return h
+
+        def down_level(i, h, context):
+            for j in range(cfg.layers_for(i)):
+                h = attn(f"down_{i}_attn_{j}", res(f"down_{i}_res_{j}", h), context)
+                skips.append(h)
+            if i < len(chans) - 1:
+                h = getattr(self, f"down_{i}_downsample")(h)
+                skips.append(h)
+            return h
 
         # --- prefix: time embedding, conv_in, the condition-free down levels ---
         if mode in ("full", "encode"):
@@ -241,7 +253,7 @@ class UNetCondition2D(nn.Module):
             h = self.conv_in(x)
             skips = [h]
             for i in range(split):
-                h = self._down_level(i, h, skips, temb, None)
+                h = down_level(i, h, None)
             if mode == "encode":
                 return h, tuple(skips), temb
         else:
@@ -257,18 +269,15 @@ class UNetCondition2D(nn.Module):
                 context = self.encoder_hid_proj(context)
 
         for i in range(split, len(chans)):
-            h = self._down_level(i, h, skips, temb, context)
+            h = down_level(i, h, context)
 
         if cfg.mid_block_type is not None:
-            h = self.mid_res_0(h, temb)
-            h = self._attn("mid_attn_0", h, context)
-            h = self.mid_res_1(h, temb)
+            h = res("mid_res_1", attn("mid_attn_0", res("mid_res_0", h), context))
 
         for i in range(len(chans)):
             level = len(chans) - 1 - i
             for j in range(cfg.layers_for(level) + 1):
-                h = getattr(self, f"up_{i}_res_{j}")(h, temb, skips.pop())
-                h = self._attn(f"up_{i}_attn_{j}", h, context)
+                h = attn(f"up_{i}_attn_{j}", res(f"up_{i}_res_{j}", h, skips.pop()), context)
             if i < len(chans) - 1:
                 h = getattr(self, f"up_{i}_upsample")(h)
         if skips:

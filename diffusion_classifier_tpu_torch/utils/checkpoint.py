@@ -7,6 +7,8 @@ full copy in ``best_checkpoint/`` when the tracked metric improved):
   evaluate and inference run on, and all that inference reads;
 - ``train_state.pt`` — the training parameters, Adam's state (or None for
   an engine that never built an optimizer), the step and the EMA counter;
+  Adam's moments keep their storage dtype (bf16 under
+  ``optimizer_state_dtype='bf16'``), so a resume restores them bit for bit;
 - ``experiment_state.json`` — the JAX package's sidecar ``{epoch + 1,
   best_metric, experiment_key}``.
 

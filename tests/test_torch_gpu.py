@@ -27,13 +27,20 @@ BF16_RAGGED = [
     ((1, 65, 1, 128), torch.bfloat16),
     ((3, 77, 2, 32), torch.bfloat16),
 ]
-# the backward's shapes: chip_smoke.py phase 6
+# the UNet's training shapes (chip_smoke.py phase 13): 64 tokens x D=32 and
+# 16 tokens x D=64 at B=64; S=16 is shorter than one of the bf16 backward's
+# 32-row streamed tiles and than its two 16-row bands a warp
+UNET_BWD = [(64, 64, 8, 32), (64, 16, 8, 64)]
+# the backward's shapes: chip_smoke.py phases 6 and 13, and a ragged
+# sequence shorter than 16 rows on the tensor cores
 BWD_CASES = [
     ((16, 1024, 6, 64), torch.bfloat16),
     ((2, 1024, 6, 64), torch.float32),
     ((1, 512, 3, 128), torch.bfloat16),
     ((2, 200, 2, 32), torch.float32),  # ragged last tiles
     *BF16_RAGGED,
+    *((shape, dtype) for shape in UNET_BWD for dtype in (torch.bfloat16, torch.float32)),
+    ((3, 9, 2, 64), torch.bfloat16),
 ]
 
 
@@ -109,6 +116,53 @@ def test_backward_kernel_matches_plain_version(cuda, shape, dtype):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == q.shape, name
         torch.testing.assert_close(g, w, **TOL[dtype], msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", UNET_BWD)
+def test_backward_kernel_matches_plain_version_at_unet_shapes(cuda, shape, dtype):
+    # separate q, k, v through the dispatcher, as the UNet's projections give them
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda").to(dtype).requires_grad_() for _ in range(3))
+    do = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    before = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches, fa.FLASH_FWD.copies, fa.FLASH_BWD.copies)
+    out = attention(q, k, v, backend="auto")
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    after = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches, fa.FLASH_FWD.copies, fa.FLASH_BWD.copies)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0, 0)
+    want = fa.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(), do, out.detach())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g, w, **TOL[dtype], msg=lambda m: f"{name}: {m}")
+
+
+def test_flagship_remat_launches_each_forward_twice_with_the_same_gradients(cuda):
+    import dataclasses
+
+    from diffusion_classifier_tpu_torch.engine.denoiser import Denoiser
+    from diffusion_classifier_tpu_torch.experiments.cifar10 import build_backbone
+    from diffusion_classifier_tpu_torch.models.encoders import ClassEmbedder
+    from diffusion_classifier_tpu_torch.models.layers import reset_parameters
+    from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = Denoiser(build_backbone(ExperimentConfig(mixed_precision="no")), ClassEmbedder(10, 128))
+    reset_parameters(model, torch.Generator().manual_seed(0))
+    model = model.cuda()
+    x = torch.rand((4, 32, 32, 3), generator=cuda, device="cuda") * 2 - 1
+    t, y = torch.randn((4,), generator=cuda, device="cuda"), torch.tensor([0, 3, 9, 10], device="cuda")
+    grads = []
+    for remat in (False, True):
+        model.backbone.config = dataclasses.replace(model.backbone.config, remat=remat)
+        model.zero_grad(set_to_none=True)
+        before = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
+        model(x, t, y).square().mean().backward()
+        torch.cuda.synchronize()
+        # 11 attention blocks: each forward runs again in the backward under remat
+        assert (fa.FLASH_FWD.launches - before[0], fa.FLASH_BWD.launches - before[1]) == (
+            (22, 11) if remat else (11, 11)
+        )
+        grads.append(torch.cat([p.grad.flatten() for p in model.parameters()]))
+    assert ((grads[1] - grads[0]).norm() / grads[0].norm()).item() <= 1e-6
 
 
 @pytest.mark.parametrize("shape", [(2, 200, 2, 64), (16, 1024, 6, 64)])

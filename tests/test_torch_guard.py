@@ -35,6 +35,32 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     assert int(proc.stdout.split()[-1]) == files - 1
 
 
+_SCRIPTS = """
+import glob, importlib.util, os, sys
+root = os.path.join({repo!r}, "diffusion_classifier_tpu") + os.sep
+paths = sorted(glob.glob(os.path.join({repo!r}, "experiments", "*", "*_torch.py")))
+for i, path in enumerate(paths):
+    spec = importlib.util.spec_from_file_location(f"script_{{i}}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+stray = sorted(
+    name for name, m in list(sys.modules.items())
+    if os.path.abspath(getattr(m, "__file__", None) or os.sep).startswith(root)
+)
+assert "jax" not in sys.modules, "jax was imported"
+assert not stray, stray
+print(len(paths))
+"""
+
+
+def test_port_experiment_scripts_import_without_jax_or_the_jax_package():
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPTS.format(repo=REPO)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert int(proc.stdout.split()[-1]) == 4  # inference and training, CheXpert DiT and CIFAR-10
+
+
 def test_no_port_source_loads_files_by_path():
     for folder, _, files in os.walk(PORT):
         for name in files:
