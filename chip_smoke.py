@@ -6,14 +6,17 @@
 Builds the CUDA flash-attention forward and backward from
 ``diffusion_classifier_tpu_torch/csrc/`` (one ``nvcc`` each, started
 together) and drives the port's main paths at full width with seeded random
-weights and synthetic data: CheXpert DiT-b4 (384 = 6 × 64, 12 layers, 256 px
-→ Haar DWT 128 × 128 × 12 → 1024 tokens) ELBO classification and CFG
-sampling through ``experiments/chexpert-dit/inference_torch.py`` and
-training through ``experiments/chexpert-dit/train_torch.py``; the CIFAR-10
-flagship UNet (blocks 128/128/256/512, 95.9 M parameters; attention at 64
-tokens × D=32 and 16 tokens × D=64) ELBO classification with the shared
-prefix and CFG sampling through ``experiments/cifar10/inference_torch.py``,
-and its training through ``experiments/cifar10/train_torch.py``. Phases:
+weights, on synthetic data and on data-format trees written from a seed:
+CheXpert DiT-b4 (384 = 6 × 64, 12 layers, 256 px → Haar DWT 128 × 128 × 12
+→ 1024 tokens) ELBO classification and CFG sampling through
+``experiments/chexpert-dit/inference_torch.py`` and training through
+``experiments/chexpert-dit/train_torch.py``; the CIFAR-10 flagship UNet
+(blocks 128/128/256/512, 95.9 M parameters; attention at 64 tokens × D=32
+and 16 tokens × D=64) ELBO classification with the shared prefix and CFG
+sampling through ``experiments/cifar10/inference_torch.py``, and its
+training through ``experiments/cifar10/train_torch.py``; the CheXpert data
+path (JPEG loader, decode cache, the CheXpert UNet's train, inference and
+OOD entry points, the DiT through the loader). Phases:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: compiles both kernels, prints the seconds, ptxas' register use and
@@ -74,7 +77,30 @@ and its training through ``experiments/cifar10/train_torch.py``. Phases:
     launches a step, the checkpoint files, then ``inference_torch.main()``
     on that checkpoint; then the step alone (10 warm steps at B=64: ms,
     images/s, peak memory, with Adam's moments in fp32 and in bf16) and a
-    profiler table of one warm step with the device's idle share.
+    profiler table of one warm step with the device's idle share;
+16. data-format trees under the run's ``build/`` workdir, from fixed seeds:
+    CheXpert (``train.csv`` in CheXpert's columns, 246 rows that pass the
+    filter and one that each clause drops, grey JPEGs of 320 × 390), 64
+    CheXpert JPEGs of 2048 × 2048, MIMIC (64 px JPEGs), PadChest (16-bit
+    PNGs) and ISIC (JPEGs);
+17. the loader on the host: the filter's split sizes, a train epoch's
+    batches from 0 and 4 workers identical bit for bit, and images/s to
+    256 px: serial and 4 threads on 320 × 390, on 2048², with
+    ``fast_decode``, and the second epoch from the ``DecodeCache``;
+18. the CheXpert UNet at full width (220,427,532 parameters; 8 heads × 96
+    at 1024 tokens, outside the kernels' gate, so plain attention: 6 calls
+    a forward, no flash launch): a forward with tail ∘ encode = full;
+    ``experiments/chexpert-unet/train_torch.py`` on the tree (bf16, remat,
+    B=16, one epoch), the step alone at B=16 and at B=64 with remat (ms,
+    peak memory, device time, idle share); ``inference_torch.py`` on its
+    checkpoint (forwards counted, the mistakes file against the
+    predictions), classify at B=16 and B=1 with profiler tables and the
+    kernels of an encode and a tail; ``ood_torch.py`` on MIMIC, PadChest
+    and ISIC;
+19. the CheXpert DiT through the loader: ``train_torch.py`` on the tree (12
+    backward launches a step), ``inference_torch.py`` (the mistakes file)
+    and ``ood_torch.py`` on MIMIC (64 tokens), 12 forward launches a
+    denoiser forward throughout.
 
 Each path's launch and copy counts are set to 0 just before it runs and read
 just after. Any failed check raises and exits non-zero. The second-to-last line
@@ -83,6 +109,7 @@ is the kernels' JSON record; the last line is
 Imports nothing of JAX, and nothing of the JAX package.
 """
 
+import contextlib
 import dataclasses
 import gc
 import importlib.util
@@ -281,7 +308,7 @@ CATEGORIES = (
 def profile_table(tag, fn):
     """Profile one call of ``fn``; print device time by kernel and by category.
 
-    Returns ``(total device ms, {category: ms})``.
+    Returns ``(total device ms, {category: ms}, kernels launched)``.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -301,7 +328,7 @@ def profile_table(tag, fn):
         f"{c} {ms:.2f} ms ({100 * ms / total:.1f}%)" for c, ms in by_category.items()))
     for ms, count, key in sorted(rows, reverse=True)[:12]:
         print(f"{tag}   {ms:8.3f} ms {100 * ms / total:5.1f}% x{count:<4d} {key[:90]}")
-    return total, by_category
+    return total, by_category, sum(r[1] for r in rows)
 
 
 def phase_device():
@@ -314,6 +341,16 @@ def phase_device():
         f"[1 device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}"
     )
+    # host libraries the data path may use (read from the installed metadata, not imported)
+    from importlib import metadata
+
+    found = {}
+    for name in ("numpy", "pillow", "pandas", "matplotlib", "triton"):
+        try:
+            found[name] = metadata.version(name)
+        except metadata.PackageNotFoundError:
+            found[name] = "absent"
+    print("[1 device] host libraries: " + ", ".join(f"{k} {v}" for k, v in found.items()))
 
 
 def entry_name(text):
@@ -518,7 +555,7 @@ def phase_entry_point(fa, chexpert, config_cls, workdir):
     print(f"[5 entry] classify B=16 (4 evals x 2 classes): {ms16:.2f} ms -> {16e3 / ms16:.2f} images/s")
     print(f"[5 entry] classify B=1 latency (4 evals x 2 classes): {ms1:.2f} ms")
     for b, ms in ((16, ms16), (1, ms1)):
-        busy, _ = profile_table(f"[5 entry] classify B={b}", lambda: engine.classify(images[:b]))
+        busy, _, _ = profile_table(f"[5 entry] classify B={b}", lambda: engine.classify(images[:b]))
         print(f"[5 entry] classify B={b}: device busy {busy:.2f} of {ms:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / ms):.1f}%")
     return launches
 
@@ -616,7 +653,7 @@ def phase_train(fa, config_cls, workdir):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[8 train] step B={config.batch_size} median {step_ms:.2f} ms -> {config.batch_size * 1e3 / step_ms:.2f} images/s; peak memory {peak_gb:.2f} GB")
 
-    busy, _ = profile_table("[8 train] one warm step", lambda: engine.train_step(batch))
+    busy, _, _ = profile_table("[8 train] one warm step", lambda: engine.train_step(batch))
     print(f"[8 train] step: device busy {busy:.2f} of {step_ms:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / step_ms):.1f}%")
     return fwd, bwd
 
@@ -828,7 +865,7 @@ def phase_unet_classify(fa, cifar, config_cls, workdir):
     print(f"[11 unet classify] classify B={b} ({evals} evals x {c} classes, shared prefix): {ms64:.2f} ms -> {b * 1e3 / ms64:.2f} images/s")
     print(f"[11 unet classify] classify B=1 latency: {ms1:.2f} ms")
     for batch, ms in ((b, ms64), (1, ms1)):
-        busy, cats = profile_table(f"[11 unet classify] classify B={batch}", lambda: engine.classify(images[:batch]))
+        busy, cats, _ = profile_table(f"[11 unet classify] classify B={batch}", lambda: engine.classify(images[:batch]))
         print(f"[11 unet classify] classify B={batch}: device busy {busy:.2f} of {ms:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / ms):.1f}%; flash forward {cats['flash forward']:.2f} ms ({100 * cats['flash forward'] / busy:.1f}%)")
     # the split: one encode on B and one tail on B (1 class a chunk), as the call runs them
     z = torch.rand((b, 32, 32, 3), generator=torch.Generator().manual_seed(8)).cuda() * 2 - 1
@@ -836,8 +873,8 @@ def phase_unet_classify(fa, cifar, config_cls, workdir):
     labels = torch.zeros((b,), dtype=torch.long, device="cuda")
     with torch.no_grad():
         state = engine._encode(z, lg)
-        enc_ms, enc = profile_table(f"[11 unet classify] one encode B={b}", lambda: engine._encode(z, lg))
-        tail_ms, tail = profile_table(f"[11 unet classify] one tail B={b}", lambda: engine._tail(state, labels))
+        enc_ms, enc, _ = profile_table(f"[11 unet classify] one encode B={b}", lambda: engine._encode(z, lg))
+        tail_ms, tail, _ = profile_table(f"[11 unet classify] one tail B={b}", lambda: engine._tail(state, labels))
     n_enc, n_tail = want[("encode", group * b)] // n_batches, want[("tail", group * b * cc)] // n_batches
     print(f"[11 unet classify] B={b} split: {n_enc} encodes x {enc_ms:.3f} ms = {n_enc * enc_ms:.2f} ms, {n_tail} tails x {tail_ms:.3f} ms = {n_tail * tail_ms:.2f} ms device time; flash forward {tail['flash forward']:.3f} ms a tail ({100 * tail['flash forward'] / tail_ms:.1f}%), {enc['flash forward']:.3f} ms an encode")
     return launches, {"images_per_s_b64": b * 1e3 / ms64, "latency_ms_b1": ms1}
@@ -899,7 +936,7 @@ def phase_sampling(fa, cifar, chexpert, config_cls, workdir):
         xd = engine._images(x)
         labels = torch.zeros((b,), dtype=torch.long, device="cuda")
         draws = TorchSampleDraws(torch.Generator(device="cuda").manual_seed(9))
-        step_ms, step = profile_table(f"{tag} two sampling steps (one noisy, the final)", lambda: one(xd, labels, draws))
+        step_ms, step, _ = profile_table(f"{tag} two sampling steps (one noisy, the final)", lambda: one(xd, labels, draws))
         busy = step_ms / 2 * steps
         print(f"{tag} one step: {step_ms / 2:.3f} ms device time, flash forward {step['flash forward'] / 2:.3f} ms ({100 * step['flash forward'] / step_ms:.1f}%)")
         print(f"{tag} B={b}, {SAMPLE_STEPS} steps: {ms:.1f} ms -> {b * 1e3 / ms:.2f} samples/s ({SAMPLE_STEPS * 1e3 / ms:.1f} steps/s); device time {busy:.1f} ms ({steps} x one step), idle ~{100 * max(0.0, 1 - busy / ms):.1f}%")
@@ -910,8 +947,8 @@ def phase_sampling(fa, cifar, chexpert, config_cls, workdir):
                 state = engine._encode(xd, lg)
                 pair = tree_map(lambda a: torch.cat([a, a]), state)
                 labels2 = torch.zeros((2 * b,), dtype=torch.long, device="cuda")
-                enc_ms, _ = profile_table(f"{tag} one encode B={b}", lambda: engine._encode(xd, lg))
-                tail_ms, _ = profile_table(f"{tag} one tail 2B={2 * b}", lambda: engine._tail(pair, labels2))
+                enc_ms, _, _ = profile_table(f"{tag} one encode B={b}", lambda: engine._encode(xd, lg))
+                tail_ms, _, _ = profile_table(f"{tag} one tail 2B={2 * b}", lambda: engine._tail(pair, labels2))
             print(f"{tag} step split: encode {enc_ms:.3f} ms, tail {tail_ms:.3f} ms device time")
     return launches, rates
 
@@ -1092,7 +1129,7 @@ def phase_unet_train(fa, cifar, config_cls, workdir):
         rates[state_dtype] = {"step_ms": step_ms, "images_per_s": config.batch_size * 1e3 / step_ms,
                               "peak_gb": peak_gb, "resident_gb": resident_gb}
         if state_dtype == "fp32":
-            busy, cats = profile_table(f"{tag}, one warm step", lambda: engine.train_step(batch))
+            busy, cats, _ = profile_table(f"{tag}, one warm step", lambda: engine.train_step(batch))
             idle = 100 * max(0.0, 1 - busy / step_ms)
             print(f"{tag}: device busy {busy:.2f} of {step_ms:.2f} ms median wall, idle ~{idle:.1f}%; flash forward {cats['flash forward']:.3f} ms, backward {cats['flash backward']:.3f} ms")
             rates[state_dtype].update(device_ms=busy, idle_percent=idle)
@@ -1100,6 +1137,442 @@ def phase_unet_train(fa, cifar, config_cls, workdir):
         gc.collect()
         torch.cuda.empty_cache()
     return fwd, bwd, rates
+
+
+# --- the CheXpert data path: data-format trees, the loader, the CheXpert UNet, the DiT on the tree
+
+CHEXPERT_COLUMNS = [
+    "Path", "Sex", "Age", "Frontal/Lateral", "AP/PA", "No Finding",
+    "Enlarged Cardiomediastinum", "Cardiomegaly", "Lung Opacity", "Lung Lesion", "Edema",
+    "Consolidation", "Pneumonia", "Atelectasis", "Pneumothorax", "Pleural Effusion",
+    "Pleural Other", "Fracture", "Support Devices",
+]
+# rows that pass the filter: 120 effusion and 126 no-finding, balanced to 240
+# (192 train, 24 valid, 24 test), as CheXpert-v1.0-small's ~320 x 390 JPEGs
+TREE_ROWS = (120, 126)
+TREE_SIZE = (320, 390)
+# CheXpert's full-size scans, for the loader's host rate: 32 of each label
+BIG_ROWS, BIG_SIZE = (32, 32), (2048, 2048)
+# the CheXpert experiments on the tree: 256 px through the DWT, 2 classes,
+# bf16, the JAX bench's batch of 16, 4 loader threads
+CX_CONFIG = {
+    "image_size": 256, "image_channels": 3, "wavelet_transform": True, "classes": 2,
+    "mixed_precision": "bf16", "batch_size": 16, "num_workers": 4, "evaluation_per_stage": [4],
+    "evaluation_batches": 0,
+}
+CX_UNET_PARAMS = 220_427_532  # experiments/chexpert-unet/common.py's backbone at 256 px with DWT
+# the UNet's self-attentions a tail: 2 in down level 2, 1 in the mid block, 3 in up level 0
+CX_UNET_ATTENTIONS = 6
+
+
+def radiograph(rng, size):
+    """A smooth grey image with grain, uint8 ``[h, w]``: a stand-in for an X-ray."""
+    import numpy as np
+    from PIL import Image
+
+    w, h = size
+    low = Image.fromarray((rng.random((8, 8)) * 255).astype(np.uint8))
+    base = np.asarray(low.resize((w, h), Image.BICUBIC), np.float32)
+    grain = rng.standard_normal((h, w), dtype=np.float32) * 6
+    return np.clip(base + grain, 0, 255).astype(np.uint8)
+
+
+def write_csv(path, header, rows):
+    import csv
+
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(header)
+        writer.writerows(rows)
+
+
+def write_chexpert_tree(root, counts, size, seed):
+    """``train.csv`` in CheXpert's columns and a grey JPEG for each frontal study-1 row.
+
+    ``counts`` = (effusion, no finding) rows that pass the filter, and one
+    row for each clause that drops one: a lateral view, a second study, -1
+    in either column, both positive, both empty (an empty cell is 0).
+    """
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    rows, files = [], []
+
+    def row(i, effusion, no_finding, view="view1_frontal", study="study1"):
+        path = f"CheXpert-v1.0-small/train/patient{i:05d}/{study}/{view}.jpg"
+        values = dict.fromkeys(CHEXPERT_COLUMNS, "")
+        values.update({"Path": path, "Sex": "Female" if i % 2 else "Male", "Age": str(30 + i % 60),
+                       "Frontal/Lateral": "Lateral" if "lateral" in view else "Frontal",
+                       "AP/PA": "AP", "No Finding": no_finding, "Pleural Effusion": effusion})
+        rows.append([values[c] for c in CHEXPERT_COLUMNS])
+        if study == "study1" and view == "view1_frontal":
+            files.append(path)
+
+    n_effusion, n_no_finding = counts
+    for i in range(n_effusion):
+        row(i, "1.0", "" if i % 2 else "0.0")
+    for i in range(n_effusion, n_effusion + n_no_finding):
+        row(i, "" if i % 3 else "0.0", "1.0")
+    i = n_effusion + n_no_finding
+    for j, (effusion, no_finding, view, study) in enumerate((
+        ("1.0", "", "view2_lateral", "study1"), ("1.0", "", "view1_frontal", "study2"),
+        ("-1.0", "1.0", "view1_frontal", "study1"), ("1.0", "-1.0", "view1_frontal", "study1"),
+        ("1.0", "1.0", "view1_frontal", "study1"), ("", "", "view1_frontal", "study1"),
+    )):
+        row(i + j, effusion, no_finding, view, study)
+    os.makedirs(root, exist_ok=True)
+    write_csv(os.path.join(root, "train.csv"), CHEXPERT_COLUMNS, [rows[k] for k in rng.permutation(len(rows))])
+    for path in files:
+        out = os.path.join(root, *path.split("/")[1:])
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        Image.fromarray(radiograph(rng, size), "L").save(out, quality=90)
+    return root
+
+
+def write_ood_trees(root, seed):
+    """MIMIC (64 px grey JPEGs), PadChest (16-bit grey PNGs) and ISIC (RGB JPEGs) trees: ``{name: folder}``."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    trees = {name: os.path.join(root, name) for name in ("mimic", "padchest", "isic")}
+    # MIMIC: labels 0, 1, empty (0), -1 (dropped): 24 of each class after balancing
+    labels = ["0.0", "1.0", "", "-1.0", "1.0"]
+    mimic = [(f"mimic-cxr-jpg/files/p1{i:04d}/s{i}/{i}.jpg", labels[i % 5]) for i in range(60)]
+    write_csv(os.path.join(_mkdir(trees["mimic"]), "mimic_pa_metadata.csv"), ["image_path", "Pleural Effusion"], mimic)
+    for path, _ in mimic:
+        out = os.path.join(trees["mimic"], *path.split("/")[2:])
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        Image.fromarray(radiograph(rng, (64, 64)), "L").save(out, quality=90)
+    # PadChest: 16-bit PNGs, labels 0, 1, empty (0), -1 (dropped), no balancing
+    padchest = [(f"{i}.png", ["0", "1", "", "-1"][i % 4]) for i in range(40)]
+    write_csv(os.path.join(_mkdir(trees["padchest"]), "padchest-v1.csv"), ["ImageID", "PleuralEffusion"], padchest)
+    for name, _ in padchest:
+        grey16 = radiograph(rng, (256, 256)).astype(np.uint16) * 257
+        Image.fromarray(grey16).save(os.path.join(trees["padchest"], name))
+    # ISIC: the pre-balanced CSV; 180 rows leave 18 in the test split
+    isic = [(f"ISIC_{i:07d}", i % 2) for i in range(180)]
+    _mkdir(os.path.join(trees["isic"], "images"))
+    write_csv(os.path.join(trees["isic"], "train_balanced.csv"), ["image_name", "target"], isic)
+    for name, _ in isic:
+        rgb = np.stack([radiograph(rng, (400, 300)) for _ in range(3)], axis=-1)
+        Image.fromarray(rgb, "RGB").save(os.path.join(trees["isic"], "images", f"{name}.jpg"), quality=90)
+    return trees
+
+
+def _mkdir(path):
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def phase_trees(workdir):
+    """Writes the data-format trees under ``workdir``; returns their folders."""
+    start = time.perf_counter()
+    trees = {
+        "chexpert": write_chexpert_tree(os.path.join(workdir, "chexpert"), TREE_ROWS, TREE_SIZE, seed=20),
+        "chexpert_2048": write_chexpert_tree(os.path.join(workdir, "chexpert-2048"), BIG_ROWS, BIG_SIZE, seed=21),
+        **write_ood_trees(os.path.join(workdir, "ood"), seed=22),
+    }
+    print(f"[16 trees] data-format trees written in {time.perf_counter() - start:.1f} s: {sorted(trees)}")
+    return trees
+
+
+def host_rate(dataset, workers, batch=16):
+    """Images/s of one pass of ``MapDataLoader`` over ``dataset`` (decode, resize, scale, stack) on the host."""
+    from diffusion_classifier_tpu_torch.data.loader import MapDataLoader
+
+    loader = MapDataLoader(len(dataset), dataset.__getitem__, batch, shuffle=False, num_workers=workers)
+    start, n = time.perf_counter(), 0
+    for b in loader:
+        n += len(b["prompt"])
+    return n / (time.perf_counter() - start)
+
+
+def phase_loader(trees, workdir):
+    """The CheXpert loader on the host: the filter's row counts, images/s, and batches that do not depend on the worker count."""
+    import numpy as np
+    import PIL
+
+    from diffusion_classifier_tpu_torch.data.chexpert import CheXpertDataLoader, CheXpertDataset
+
+    splits = {s: len(CheXpertDataset(trees["chexpert"], s)) for s in ("train", "valid", "test")}
+    check(splits == {"train": 192, "valid": 24, "test": 24}, f"CheXpert splits {splits}")
+    serial, pooled = (
+        CheXpertDataLoader(True, trees["chexpert"], batch_size=16, num_workers=w, seed=3)
+        for w in (0, 4)
+    )
+    same = True
+    for a, b in zip(serial.get_train_loader(), pooled.get_train_loader()):
+        same &= all(np.array_equal(a[k], b[k]) for k in ("images", "prompt"))
+    check(same, "batches from 0 and 4 workers differ")
+    rates = {}
+    small = CheXpertDataset(trees["chexpert"], "train")
+    rates["320x390_serial"] = host_rate(small, 0)
+    rates["320x390_4_workers"] = host_rate(small, 4)
+    big = CheXpertDataset(trees["chexpert_2048"], "train")
+    rates["2048_serial"] = host_rate(big, 0)
+    rates["2048_4_workers"] = host_rate(big, 4)
+    rates["2048_4_workers_fast_decode"] = host_rate(CheXpertDataset(trees["chexpert_2048"], "train", fast_decode=True), 4)
+    cached = CheXpertDataset(trees["chexpert_2048"], "train", decode_cache_dir=os.path.join(workdir, "decode-cache"))
+    rates["2048_4_workers_cache_first_epoch"] = host_rate(cached, 4)
+    rates["2048_4_workers_cache_second_epoch"] = host_rate(cached, 4)
+    cores = os.cpu_count()
+    print(f"[17 loader] CheXpert tree: {sum(splits.values())} rows after the filter and the balancing, splits {splits}; a train epoch's batches from 0 and 4 workers are identical bit for bit: {same}")
+    print(f"[17 loader] host images/s to 256 px ({cores} cores, {len(small)} images of {TREE_SIZE[0]}x{TREE_SIZE[1]}, {len(big)} of {BIG_SIZE[0]}x{BIG_SIZE[1]}): " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+    return {"images_per_s": rates, "cores": cores, "decode": f"PIL {PIL.__version__}",
+            "identical_0_vs_4_workers": same}
+
+
+@contextlib.contextmanager
+def plain_attention_calls():
+    """Counts the dispatcher's plain-attention calls (the route outside the kernels' gate): yields ``[count]``."""
+    from diffusion_classifier_tpu_torch.ops import attention as attention_module
+
+    real = attention_module.flash_attention_reference
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    attention_module.flash_attention_reference = counted
+    try:
+        yield calls
+    finally:
+        attention_module.flash_attention_reference = real
+
+
+def phase_cx_unet_forward(fa, cx_unet, config_cls):
+    """The CheXpert UNet at full width: its parameter count, a forward with no kernel, tail ∘ encode = full."""
+    from diffusion_classifier_tpu_torch.engine.denoiser import Denoiser
+    from diffusion_classifier_tpu_torch.models.encoders import ClassEmbedder
+    from diffusion_classifier_tpu_torch.models.layers import reset_parameters
+
+    config = config_cls.from_dict(dict(CX_CONFIG, encoder_type="nn"))
+    model = cx_unet.build_backbone(config)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == CX_UNET_PARAMS, f"{n_params} parameters, the CheXpert UNet has {CX_UNET_PARAMS}")
+    model = Denoiser(model, ClassEmbedder(2, 256, torch.bfloat16))
+    reset_parameters(model, torch.Generator().manual_seed(0))
+    model = model.to("cuda").eval()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b = 16
+    x = torch.rand((b, 128, 128, 12), generator=gen, device="cuda") * 2 - 1
+    t = torch.randn((b,), generator=gen, device="cuda") * 4
+    y = torch.randint(0, 3, (b,), generator=gen, device="cuda")
+    with torch.no_grad(), plain_attention_calls() as calls:
+        reset_counts(fa)
+        full = model(x, t, y)
+        torch.cuda.synchronize()
+        per_forward = calls[0]
+        tail = model(None, None, y, mode="tail", prefix_state=model(x, t, None, mode="encode"))
+    rel = ((tail - full).norm() / full.norm()).item()
+    launches = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
+    print(f"[18 cx-unet] CheXpert UNet {n_params} parameters (backbone), forward B={b} on 128x128x12 bf16: output {tuple(full.shape)}, flash launches {launches}, plain attention calls {per_forward} (8 heads x D=96 at 32x32 = 1024 tokens), tail(encode) vs full rel L2 {rel:.3e}")
+    check(full.shape == (b, 128, 128, 12) and bool(torch.isfinite(full).all()), "CheXpert UNet output")
+    check(launches == (0, 0), f"the CheXpert UNet launched the flash kernels {launches}: D=96 is outside their gate")
+    check(per_forward == CX_UNET_ATTENTIONS, f"{per_forward} plain attention calls a forward, expected {CX_UNET_ATTENTIONS}")
+    check(rel <= 1e-3, f"tail(encode(x)) differs from the full forward: {rel}")
+    return per_forward
+
+
+def step_numbers(engine, batch, tag):
+    """Median ms of warm train steps, images/s, peak memory and one profiled step's device time."""
+    b = len(batch["prompt"])
+    engine._build_train_state(total_steps=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: engine.train_step(batch), reps=5, warmup=2)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy, cats, kernels = profile_table(f"{tag}, one warm step", lambda: engine.train_step(batch))
+    idle = 100 * max(0.0, 1 - busy / step_ms)
+    print(f"{tag}: median {step_ms:.2f} ms -> {b * 1e3 / step_ms:.2f} images/s; peak memory {peak_gb:.3f} GB; device busy {busy:.2f} ms in {kernels} kernels, idle ~{idle:.1f}%")
+    return {"step_ms": step_ms, "images_per_s": b * 1e3 / step_ms, "peak_gb": peak_gb,
+            "device_ms": busy, "kernels": kernels, "idle_percent": idle}
+
+
+def phase_cx_unet_train(fa, cx_unet, config_cls, trees, workdir):
+    """CheXpert UNet training through ``experiments/chexpert-unet/train_torch.py`` on the tree, then the step alone at B=16 and 64."""
+    cfg = dict(CX_CONFIG, encoder_type="nn", data_path=trees["chexpert"], remat=True, num_epochs=1,
+               log_every_steps=1, use_comet=True, sampling_steps=4, project_root=workdir,
+               experiment_dir="chexpert-unet", decode_cache_dir=os.path.join(workdir, "cx-cache"))
+    config = config_cls.from_dict(dict(cfg))
+    os.environ["TRAINING_CONFIG"] = json.dumps(cfg)
+    saved = []
+    reset_counts(fa)
+    start = time.perf_counter()
+    with plain_attention_calls() as calls:
+        engine = load_script("train_torch", "chexpert-unet").main([], plot_function=numpy_plotter(saved))
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
+    steps = 192 // config.batch_size
+    exp = config.experiment_path
+    with open(os.path.join(exp, "track.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    losses = [e["value"] for e in events if e.get("name") == "loss" and e.get("step") is not None]
+    print(f"[18 cx-unet train] train_torch.main() on the tree, bf16, remat, B={config.batch_size}: {len(losses)} steps in {seconds:.1f} s (first epoch's decode, eval at 4 evaluations, sampling at {cfg['sampling_steps']} steps for the plot, checkpoint included); flash launches {launches}, plain attention calls {calls[0]}; loss first {losses[0]:.5f} last {losses[-1]:.5f}")
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(launches == (0, 0), f"the CheXpert UNet launched the flash kernels {launches}")
+    check(len(saved) == 1 and os.path.isfile(saved[0]), "the plot function did not run")
+    for name in ("ema_params.pt", "train_state.pt", "experiment_state.json"):
+        check(os.path.isfile(os.path.join(exp, "checkpoints", name)), f"no checkpoints/{name}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the step alone: B=16 (the JAX bench's) as configured, B=64 (the config's) with remat
+    import numpy as np
+
+    from diffusion_classifier_tpu_torch.data.chexpert import CheXpertDataLoader
+
+    data = CheXpertDataLoader(True, trees["chexpert"], batch_size=16, num_workers=4,
+                              decode_cache_dir=cfg["decode_cache_dir"])
+    batches = list(data.get_train_loader())[:4]
+    big = {k: np.concatenate([b[k] for b in batches]) for k in ("images", "prompt")}
+    rates = {}
+    for b, remat, batch in ((16, False, batches[0]), (64, True, big)):
+        engine = cx_unet.build_engine(config_cls.from_dict(dict(cfg, remat=remat, batch_size=b)))
+        engine.init_params()
+        rates[f"b{b}{'_remat' if remat else ''}"] = step_numbers(
+            engine, batch, f"[18 cx-unet train] step B={b}, remat {remat}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rates, launches
+
+
+def phase_cx_unet_classify(fa, cx_unet, config_cls, trees, workdir):
+    """``inference_torch.py`` on the trained checkpoint (mistakes file), classify B=16 and B=1, then ``ood_torch.py`` on the three OOD sets."""
+    from diffusion_classifier_tpu_torch.diffusion.classify import auto_eval_group
+
+    cfg = dict(CX_CONFIG, encoder_type="nn", data_path=trees["chexpert"], project_root=workdir,
+               experiment_dir="chexpert-unet")
+    config = config_cls.from_dict(dict(cfg))
+    os.environ["INFERENCE_CONFIG"] = json.dumps(cfg)
+    forwards = {}
+    hook = count_forwards(forwards)
+    try:
+        reset_counts(fa)
+        with plain_attention_calls() as calls:
+            metric_output, preds, batches = load_script("inference_torch", "chexpert-unet").main([])
+            torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    b, evals = config.batch_size, config.evaluation_per_stage[0]
+    group = auto_eval_group(evals, b, 2, img_elems=128 * 128 * 12)
+    want = {("encode", group * b): evals // group, ("tail", group * b): evals // group * 2}
+    p = torch.cat(preds)
+    labels = torch.cat([torch.as_tensor(x["prompt"]) for x in batches])
+    with open(os.path.join(config.experiment_path, "mistakes-ddpm-chexpert.txt")) as f:
+        mistakes = [line for line in f.read().splitlines() if line]
+    print(f"[18 cx-unet classify] inference_torch.main() on the trained checkpoint: {metric_output}; forwards {forwards} (expected {want}: G={group}, 1 class a chunk), flash launches {(fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)}, plain attention calls {calls[0]}; {len(mistakes)} lines in mistakes-ddpm-chexpert.txt for {int((p != labels).sum())} misclassified of {len(p)}")
+    check(forwards == want, f"forwards {forwards}, expected {want}")
+    check((fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) == (0, 0), "the CheXpert UNet launched a flash kernel")
+    check(calls[0] == CX_UNET_ATTENTIONS * want[("tail", group * b)], f"{calls[0]} plain attention calls")
+    check(len(p) == b and bool(((p == 0) | (p == 1)).all()), f"predictions {p.tolist()}")
+    check(len(mistakes) == int((p != labels).sum()), f"{len(mistakes)} mistakes for {int((p != labels).sum())} misclassified")
+
+    engine = cx_unet.build_engine(config)
+    engine.init_params()
+    engine.load_checkpoint(os.path.join(config.experiment_path, "checkpoints"), train_state=False)
+    images = batches[0]["images"]
+    ms16 = cuda_ms(lambda: engine.classify(images), reps=3, warmup=1)
+    ms1 = cuda_ms(lambda: engine.classify(images[:1]), reps=5, warmup=1)
+    rates = {"images_per_s_b16": b * 1e3 / ms16, "ms_b16": ms16, "latency_ms_b1": ms1}
+    for batch, ms in ((b, ms16), (1, ms1)):
+        busy, _, kernels = profile_table(f"[18 cx-unet classify] classify B={batch}", lambda: engine.classify(images[:batch]))
+        idle = 100 * max(0.0, 1 - busy / ms)
+        print(f"[18 cx-unet classify] classify B={batch} ({evals} evals x 2 classes, shared prefix): {ms:.2f} ms median wall -> {batch * 1e3 / ms:.2f} images/s; device busy {busy:.2f} ms in {kernels} kernels, idle ~{idle:.1f}%")
+        rates[f"b{batch}"] = {"device_ms": busy, "kernels": kernels, "idle_percent": idle}
+    z = engine._images(images)
+    lg = torch.zeros((b,), device="cuda")
+    with torch.no_grad():
+        state = engine._encode(z, lg)
+        enc_ms, _, enc_kernels = profile_table(f"[18 cx-unet classify] one encode B={b}", lambda: engine._encode(z, lg))
+        tail_ms, _, tail_kernels = profile_table(f"[18 cx-unet classify] one tail B={b}", lambda: engine._tail(state, torch.zeros((b,), dtype=torch.long, device="cuda")))
+    print(f"[18 cx-unet classify] B={b}: an encode {enc_ms:.3f} ms in {enc_kernels} kernels, a tail {tail_ms:.3f} ms in {tail_kernels} kernels (device time)")
+    rates.update(encode_ms=enc_ms, encode_kernels=enc_kernels, tail_ms=tail_ms, tail_kernels=tail_kernels)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ood = {}
+    for name in ("mimic", "padchest", "isic"):
+        os.environ["INFERENCE_CONFIG"] = json.dumps(dict(cfg, data_path=trees[name], evaluation_batches=1))
+        reset_counts(fa)
+        start = time.perf_counter()
+        metric_output, preds, batches = load_script("ood_torch", "chexpert-unet").main(["--dataset", name])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        p = torch.cat(preds)
+        size = batches[0]["images"].shape[1]
+        print(f"[18 cx-unet ood] ood_torch.main(['--dataset', '{name}']): {len(batches)} batches of {batches[0]['images'].shape}, {seconds:.1f} s (engine, checkpoint and loader included); flash launches {(fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)}; {metric_output}")
+        check(bool(((p == 0) | (p == 1)).all()) and len(metric_output) == 4, f"{name}: predictions {p.tolist()}")
+        check(size == (256 if name == "isic" else 64), f"{name} images of {size} px")
+        check((fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) == (0, 0), f"{name}: a flash kernel launched")
+        ood[name] = {"seconds": seconds, "batches": len(batches), "px": size}
+    return rates, ood
+
+
+def phase_cx_dit_tree(fa, config_cls, trees, workdir):
+    """The CheXpert DiT on the tree: ``train_torch.py``, ``inference_torch.py`` (mistakes file) and ``ood_torch.py`` on MIMIC; both kernels."""
+    cfg = dict(CX_CONFIG, encoder_type="DiT", patch_size=4, data_path=trees["chexpert"], num_epochs=1,
+               log_every_steps=1, use_comet=True, sampling_steps=4, project_root=workdir,
+               experiment_dir="chexpert-dit-tree")
+    config = config_cls.from_dict(dict(cfg))
+    os.environ["TRAINING_CONFIG"] = json.dumps(cfg)
+    launches, saved, forwards = {}, [], {}
+    steps = 192 // config.batch_size
+    hook = count_forwards(forwards)
+    try:
+        reset_counts(fa)
+        start = time.perf_counter()
+        load_script("train_torch").main([], plot_function=numpy_plotter(saved))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        fwd, bwd = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
+        n_forwards = sum(forwards.values())
+        with open(os.path.join(config.experiment_path, "track.jsonl")) as f:
+            losses = [e["value"] for e in map(json.loads, f) if e.get("name") == "loss" and e.get("step") is not None]
+        print(f"[19 dit tree train] train_torch.main() on the tree: {len(losses)} steps in {seconds:.1f} s; denoiser forwards {forwards}; flash launches fwd {fwd} bwd {bwd}; loss first {losses[0]:.5f} last {losses[-1]:.5f}")
+        check_no_copies(fa, "[19 dit tree train]")
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"losses {losses}")
+        check(bwd == 12 * steps, f"{bwd} backward launches for {steps} steps, expected {12 * steps}")
+        check(fwd == 12 * n_forwards, f"{fwd} forward launches for {n_forwards} denoiser forwards")
+        launches["train"] = (fwd, bwd)
+
+        os.environ["INFERENCE_CONFIG"] = json.dumps(dict(cfg, use_comet=False))
+        forwards.clear()
+        reset_counts(fa)
+        metric_output, preds, batches = load_script("inference_torch").main([])
+        torch.cuda.synchronize()
+        p = torch.cat(preds)
+        labels = torch.cat([torch.as_tensor(x["prompt"]) for x in batches])
+        with open(os.path.join(config.experiment_path, "mistakes-ddpm-chexpert.txt")) as f:
+            mistakes = [line for line in f.read().splitlines() if line]
+        n_forwards = sum(forwards.values())
+        print(f"[19 dit tree classify] inference_torch.main(): {metric_output}; forwards {forwards}, flash launches {fa.FLASH_FWD.launches}; {len(mistakes)} lines in mistakes-ddpm-chexpert.txt for {int((p != labels).sum())} misclassified of {len(p)}")
+        check(fa.FLASH_FWD.launches == 12 * n_forwards and fa.FLASH_BWD.launches == 0, "classify launches")
+        check(bool(((p == 0) | (p == 1)).all()) and len(mistakes) == int((p != labels).sum()), "predictions or mistakes file")
+        launches["classify"] = fa.FLASH_FWD.launches
+
+        os.environ["INFERENCE_CONFIG"] = json.dumps(dict(cfg, data_path=trees["mimic"], use_comet=False, evaluation_batches=1))
+        forwards.clear()
+        reset_counts(fa)
+        metric_output, preds, batches = load_script("ood_torch").main(["--dataset", "mimic"])
+        torch.cuda.synchronize()
+        n_forwards = sum(forwards.values())
+        p = torch.cat(preds)
+        print(f"[19 dit tree ood] ood_torch.main(['--dataset', 'mimic']): {len(batches)} batches of {batches[0]['images'].shape} (64 tokens at patch 4), forwards {forwards}, flash launches {fa.FLASH_FWD.launches}; {metric_output}")
+        check(fa.FLASH_FWD.launches == 12 * n_forwards > 0, "OOD launches")
+        check(bool(((p == 0) | (p == 1)).all()), f"predictions {p.tolist()}")
+        launches["ood"] = fa.FLASH_FWD.launches
+    finally:
+        hook.remove()
+    check_no_copies(fa, "[19 dit tree ood]")
+    return launches
 
 
 def loaded_from_jax_package():
@@ -1118,6 +1591,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, REPO)
     from diffusion_classifier_tpu_torch.experiments import chexpert_dit as chexpert
+    from diffusion_classifier_tpu_torch.experiments import chexpert_unet as cx_unet
     from diffusion_classifier_tpu_torch.experiments import cifar10 as cifar
     from diffusion_classifier_tpu_torch.ops import flash_attention as fa
     from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
@@ -1142,6 +1616,12 @@ def main() -> int:
         unet_train_fwd, unet_train_bwd, unet_train_rates = phase_unet_train(
             fa, cifar, ExperimentConfig, workdir
         )
+        trees = phase_trees(workdir)
+        loader_rates = phase_loader(trees, workdir)
+        cx_attention = phase_cx_unet_forward(fa, cx_unet, ExperimentConfig)
+        cx_train_rates, cx_train_launches = phase_cx_unet_train(fa, cx_unet, ExperimentConfig, trees, workdir)
+        cx_classify_rates, cx_ood = phase_cx_unet_classify(fa, cx_unet, ExperimentConfig, trees, workdir)
+        dit_tree = phase_cx_dit_tree(fa, ExperimentConfig, trees, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
@@ -1152,12 +1632,21 @@ def main() -> int:
         "flash_attn_fwd": {
             "classify": classify_fwd, "train": train_fwd, "unet_classify": unet_classify_fwd,
             "unet_sample": sample_fwd["cifar10"], "dit_sample": sample_fwd["chexpert-dit"],
-            "unet_train": unet_train_fwd,
+            "unet_train": unet_train_fwd, "dit_tree_train": dit_tree["train"][0],
+            "dit_tree_classify": dit_tree["classify"], "dit_tree_ood": dit_tree["ood"],
+            "chexpert_unet": cx_train_launches[0],
         },
-        "flash_attn_bwd": {"classify": 0, "train": train_bwd, "unet_train": unet_train_bwd},
+        "flash_attn_bwd": {
+            "classify": 0, "train": train_bwd, "unet_train": unet_train_bwd,
+            "dit_tree_train": dit_tree["train"][1], "chexpert_unet": cx_train_launches[1],
+        },
     }
     print(json.dumps({"paths": {
         "unet_classify": unet_rates, "sample": sample_rates, "unet_train": unet_train_rates,
+        "chexpert_loader": loader_rates,
+        "chexpert_unet": {"plain_attention_calls_a_forward": cx_attention, "classify": cx_classify_rates,
+                          "train_step": cx_train_rates, "ood": cx_ood},
+        "chexpert_dit_tree_launches": dit_tree,
     }}))
     print(json.dumps({"kernels": [
         {

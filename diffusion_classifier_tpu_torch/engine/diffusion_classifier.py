@@ -10,6 +10,11 @@ best-metric checkpoints, resume, the save on SIGTERM/SIGINT), ``classify``,
 sampling) and whole-state checkpoints. Not yet: the multi-process paths
 (ROADMAP A10).
 
+``debug_nans`` (the JAX engine's ``jax_debug_nans``): the train step raises
+``FloatingPointError`` on a non-finite loss or gradient, and classify and
+sample on a non-finite denoiser output (one host sync a forward). Off, it
+costs nothing.
+
 As in the JAX engine, classify, sample and evaluate run on the EMA
 parameters (``state.ema_model``); ``loss`` and the train step on the
 training parameters (``denoiser``). With the EMA ramp at its start the EMA
@@ -47,7 +52,7 @@ from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.tracking import make_tracker
 from .denoiser import Denoiser, supports_prefix
 from .state import EmaConfig, init_train_state, lr_at, make_optimizer
-from .steps import TorchTrainDraws, make_loss_fn, make_train_step
+from .steps import TorchTrainDraws, check_finite, make_loss_fn, make_train_step
 
 __all__ = ["DiffusionClassifier"]
 
@@ -61,6 +66,17 @@ def _first_batch(dataloader, name: str):
             f"batching this happens when the dataset has fewer rows than "
             f"batch_size — reduce batch_size or provide more data."
         ) from None
+
+
+def _checked(forward: Callable) -> Callable:
+    """``forward`` that raises ``FloatingPointError`` when its output is not finite (``debug_nans``)."""
+
+    def run(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        check_finite("the denoiser output", [out])
+        return out
+
+    return run
 
 
 class DiffusionClassifier:
@@ -97,6 +113,10 @@ class DiffusionClassifier:
             tail_fn = lambda state, labels: self.state.ema_model(  # noqa: E731
                 None, None, labels, mode="tail", prefix_state=state
             )
+        if config.debug_nans:
+            apply_fn = _checked(apply_fn)
+            if tail_fn is not None:
+                tail_fn = _checked(tail_fn)
         self._encode, self._tail = encode_fn, tail_fn
         self._sample_impl = make_sampler(
             apply_fn,
@@ -164,6 +184,7 @@ class DiffusionClassifier:
         self._train_step = make_train_step(
             self._loss_fn, tx, self.ema_cfg,
             grad_accum_steps=cfg.gradient_accumulation_steps,
+            debug_nans=cfg.debug_nans,
         )
 
     # ------------------------------------------------------------- public API

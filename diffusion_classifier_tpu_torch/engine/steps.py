@@ -10,6 +10,11 @@ The random draws (dropout uniforms, t, ε) come from a :class:`TrainDraws`
 provider, requested per microbatch in order: :class:`TorchTrainDraws` over a
 ``torch.Generator`` on the device, or, in the tests, one that replays the JAX
 key tree (``split(rng, 3)`` per microbatch, ``split(rng, k)`` over them).
+
+``debug_nans`` is the port's ``jax_debug_nans``: the step checks that the
+loss and every gradient are finite before it updates anything, and raises
+``FloatingPointError`` if not. The check reads one flag from the device;
+without ``debug_nans`` the step makes no host synchronisation.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from .state import EmaConfig, Optimizer, TrainState, ema_update
 
 __all__ = [
     "CFG_DROP_P",
+    "check_finite",
     "TorchTrainDraws",
     "TrainDraws",
     "make_loss_fn",
@@ -53,6 +59,13 @@ class TorchTrainDraws:
         u = torch.rand((batch,), generator=g, device=dev)
         t = torch.rand((batch,), generator=g, device=dev)
         return u, t, torch.randn(x_shape, generator=g, device=dev)
+
+
+def check_finite(what: str, tensors) -> None:
+    """Raise ``FloatingPointError`` unless every tensor of ``tensors`` is finite (one host sync)."""
+    tensors = list(tensors)
+    if tensors and not bool(torch.stack([torch.isfinite(t).all() for t in tensors]).all()):
+        raise FloatingPointError(f"debug_nans: non-finite values in {what}")
 
 
 def make_loss_fn(
@@ -86,8 +99,13 @@ def make_train_step(
     ema_cfg: EmaConfig,
     *,
     grad_accum_steps: int = 1,
+    debug_nans: bool = False,
 ):
-    """Build ``train_step(state, x, labels, draws) -> loss`` (a detached scalar; no host sync)."""
+    """Build ``train_step(state, x, labels, draws) -> loss`` (a detached scalar).
+
+    No host sync, unless ``debug_nans``: then a non-finite loss or gradient
+    raises ``FloatingPointError`` before the update.
+    """
     k = grad_accum_steps
 
     def step(state: TrainState, x: torch.Tensor, labels: torch.Tensor, draws) -> torch.Tensor:
@@ -107,6 +125,8 @@ def make_train_step(
         if k > 1:
             total = total / k
             torch._foreach_div_(grads, float(k))
+        if debug_nans:
+            check_finite("the loss and gradients", [total, *grads])
         tx.update(grads, state.opt_state, params)
         ema_update(state.ema_params(), params, state.ema_counter, ema_cfg)
         for p in params:

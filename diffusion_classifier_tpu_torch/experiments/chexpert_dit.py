@@ -2,21 +2,26 @@
 
 DiT 384 wide (``384 // attention_head_dim`` heads, 6 × 64 by default), 12
 layers, patch size from the config; with the Haar DWT a 256 px, 3-channel
-image enters as 128 × 128 × 12. The synthetic data set is the port's copy
-of the JAX package's (same arrays, same 256 train / 64 val split, same
-shuffles for the same seed).
+image enters as 128 × 128 × 12. ``data_path "synthetic"`` gives the
+port's copy of the JAX package's synthetic set (same arrays, same 256 train
+/ 64 val split, same shuffles for the same seed); any other path is read as
+a CheXpert tree (``train.csv`` and its JPEGs) by :mod:`..data.chexpert`.
 """
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
+from ..data.chexpert import CheXpertDataLoader
 from ..data.synthetic import SyntheticDataLoader
 from ..engine import DiffusionClassifier
 from ..models.dit import DiT, DiTConfig
 from ..utils.config import ExperimentConfig
 
-__all__ = ["build_backbone", "build_data", "build_engine"]
+__all__ = ["build_backbone", "build_data", "build_engine", "write_mistakes"]
 
 WIDTH = 384
 NUM_LAYERS = 12
@@ -46,19 +51,25 @@ def build_backbone(config: ExperimentConfig) -> DiT:
     )
 
 
-def build_data(config: ExperimentConfig) -> SyntheticDataLoader:
-    if config.data_path != "synthetic":
-        raise NotImplementedError(
-            "the CheXpert loader is not wired into the port yet (ROADMAP A11); "
-            "use data_path 'synthetic'"
+def build_data(config: ExperimentConfig):
+    if config.data_path == "synthetic":
+        return SyntheticDataLoader(
+            256, 64,
+            batch_size=config.batch_size,
+            image_size=config.image_size,
+            channels=config.image_channels,
+            classes=config.classes,
+            seed=config.seed,
         )
-    return SyntheticDataLoader(
-        256, 64,
+    return CheXpertDataLoader(
+        wavelet_transform=config.wavelet_transform,
+        data_path=config.data_path,
         batch_size=config.batch_size,
+        num_workers=config.num_workers,
         image_size=config.image_size,
-        channels=config.image_channels,
-        classes=config.classes,
         seed=config.seed,
+        fast_decode=config.fast_decode,
+        decode_cache_dir=config.decode_cache_dir,
     )
 
 
@@ -67,3 +78,30 @@ def build_engine(config: ExperimentConfig, device="cuda") -> DiffusionClassifier
     if config.encoder_type != "DiT":
         raise ValueError("chexpert-dit uses encoder_type='DiT'")
     return DiffusionClassifier(build_backbone(config), config, device=device)
+
+
+def write_mistakes(config: ExperimentConfig, data, predictions) -> str | None:
+    """Write ``mistakes-ddpm-chexpert.txt``: the test split's misclassified paths, one a line.
+
+    ``predictions`` are the inference's per-batch predictions, in the test
+    loader's order (drop_last batching: the file covers the first
+    ``len(predictions)`` items). Only a single process writes it, since
+    under several each holds its own rows of every batch; returns the path,
+    or None where nothing was written (several processes, or a data set
+    without paths).
+    """
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return None
+    dataset = getattr(data, "test_dataset", None)
+    if not hasattr(dataset, "mistake_paths"):
+        return None
+    preds = np.concatenate([np.asarray(p) for p in predictions])
+    mistakes = dataset.mistake_paths(preds)
+    out = os.path.join(config.experiment_path, "mistakes-ddpm-chexpert.txt")
+    os.makedirs(config.experiment_path, exist_ok=True)
+    with open(out, "w") as f:
+        f.write("\n".join(mistakes) + "\n")
+    print(f"{len(mistakes)} mistakes written to {out}")
+    return out

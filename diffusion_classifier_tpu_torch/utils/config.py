@@ -4,8 +4,8 @@ Copied from the JAX package's module (stdlib only) so the port imports
 nothing of that package: the same JSON schema, the same field defaults and
 the same validator, so a launcher JSON of the JAX experiments loads here
 unchanged. Fields that only the JAX engine reads (mesh sharding, the XLA
-compilation cache, NaN debugging) are kept for that reason and ignored by
-the port.
+compilation cache) are kept for that reason and ignored by the port;
+``debug_nans`` makes the port's engine check its outputs for NaN and inf.
 
 The reference parses a JSON blob from the ``TRAINING_CONFIG`` /
 ``INFERENCE_CONFIG`` env var into an object whose ``__getattr__`` silently
@@ -160,8 +160,9 @@ class ExperimentConfig:
     # recomputes block interiors instead of storing them — trades ~one extra
     # forward of FLOPs for peak activation memory (bigger batches / models)
     remat: bool = False
-    # debug/observability (SURVEY §5.2: the reference has no sanitizers; JAX
-    # purity + these toggles are the TPU-native equivalent)
+    # debug/observability (SURVEY §5.2: the reference has no sanitizers):
+    # raise FloatingPointError on a non-finite loss, gradient or denoiser
+    # output (the port's engine; jax_debug_nans in the JAX package's)
     debug_nans: bool = False
     # checkpoint on SIGTERM/SIGINT for preemption safety (SURVEY §5.3)
     save_on_signal: bool = True

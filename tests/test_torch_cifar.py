@@ -3,10 +3,13 @@
 The tests write ``cifar-10-batches-py`` pickle files in the on-disk format
 (uint8 ``data`` rows of 3 × 32 × 32 channel-major bytes, byte-keyed dicts),
 as ``tests/test_cifar_loader.py`` does, and hand the same folder to both
-loaders. ``experiments/cifar10/train_torch.py`` then trains the full-width
-flagship UNet on such files on the CPU: a few 32 px images, one step.
+loaders. ``experiments/cifar10/train_torch.py`` then trains on such files on
+the CPU: a few 32 px images, one step of the flagship's architecture at a
+quarter of its width (the full width's 95.9 M parameters are held to JAX in
+``tests/test_torch_unet.py``; here the wiring is under test).
 """
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -24,7 +27,9 @@ from diffusion_classifier_tpu_torch.data.cifar import (
     CIFAR10DataLoader,
     load_cifar10_arrays,
 )
+from diffusion_classifier_tpu_torch.experiments import cifar10
 from diffusion_classifier_tpu_torch.experiments.cifar10 import build_data
+from diffusion_classifier_tpu_torch.models.unet import UNetCondition2D
 from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
 
 torch.set_num_threads(1)
@@ -75,10 +80,26 @@ def test_missing_cifar_raises(tmp_path):
         build_data(ExperimentConfig(data_path=str(tmp_path / "nope")))
 
 
+_FULL_WIDTH = cifar10.build_backbone
+
+
+def _narrow_flagship(config):
+    """The experiment's UNet with every width divided by 4: the same levels, blocks and heads."""
+    with torch.device("meta"):
+        cfg = _FULL_WIDTH(config).config
+    narrow = dataclasses.replace(
+        cfg, block_out_channels=tuple(c // 4 for c in cfg.block_out_channels),
+        encoder_hid_dim=cfg.encoder_hid_dim // 4, cross_attention_dim=cfg.cross_attention_dim // 4,
+        norm_num_groups=8,
+    )
+    return UNetCondition2D(narrow, torch.float32)
+
+
 def test_train_torch_runs_on_cpu(tmp_path, monkeypatch, capsys):
-    # the flagship UNet at full width (95.9M parameters) on 32 px pickles:
-    # 5 train images make one step at B=5; 2 classes, one evaluation, one
-    # sampling step for the plot keep the eval short
+    # the flagship's architecture at a quarter of its width on 32 px
+    # pickles: 5 train images make one step at B=5; 2 classes, one
+    # evaluation, one sampling step for the plot keep the eval short
+    monkeypatch.setattr(cifar10, "build_backbone", _narrow_flagship)
     _write_cifar(tmp_path / "data" / "cifar-10-batches-py", n_train=1, n_test=5, classes=2)
     config = dict(
         data_path=str(tmp_path / "data"), classes=2, encoder_type="nn", mixed_precision="no",
@@ -93,6 +114,7 @@ def test_train_torch_runs_on_cpu(tmp_path, monkeypatch, capsys):
     spec.loader.exec_module(train_torch)
     engine = train_torch.main(["--device", "cpu"])
     assert engine.state.step == 1
+    assert engine.denoiser.backbone.config.block_out_channels == (32, 32, 64, 128)
     exp = tmp_path / "exp"
     events = [json.loads(line) for line in (exp / "track.jsonl").read_text().splitlines()]
     losses = [e["value"] for e in events if e.get("name") == "loss" and e.get("step") is not None]

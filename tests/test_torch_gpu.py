@@ -247,3 +247,47 @@ def test_backward_wrapper_raises_on_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous last dim"):
         fa.FLASH_BWD(q, k, v, out, out.transpose(1, 3).contiguous().transpose(1, 3), lse)
     assert fa.FLASH_BWD.launches == before
+
+
+# --- the CheXpert UNet: 8 heads x 96 at 1024 tokens, outside the kernels' gate
+
+
+def test_d96_attention_takes_the_plain_route_on_the_card(cuda):
+    q, k, v = (torch.randn((2, 1024, 8, 96), generator=cuda, device="cuda").to(torch.bfloat16) for _ in range(3))
+    before = fa.FLASH_FWD.launches
+    got = attention(q, k, v, backend="auto")
+    assert fa.FLASH_FWD.launches == before
+    torch.testing.assert_close(got, fa.flash_attention_reference(q, k, v), rtol=0, atol=0)
+
+
+def test_chexpert_unet_trains_on_the_card_without_the_kernels(cuda):
+    import dataclasses
+
+    from diffusion_classifier_tpu_torch.engine.denoiser import Denoiser
+    from diffusion_classifier_tpu_torch.experiments.chexpert_unet import build_backbone
+    from diffusion_classifier_tpu_torch.models.encoders import ClassEmbedder
+    from diffusion_classifier_tpu_torch.models.layers import reset_parameters
+    from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
+
+    config = ExperimentConfig(image_size=256, wavelet_transform=True, classes=2, mixed_precision="bf16")
+    model = Denoiser(build_backbone(config), ClassEmbedder(2, 256, torch.bfloat16))
+    model.backbone.config = dataclasses.replace(model.backbone.config, remat=True)
+    reset_parameters(model, torch.Generator().manual_seed(0))
+    model = model.cuda()
+    x = torch.rand((2, 128, 128, 12), generator=cuda, device="cuda") * 2 - 1
+    t, y = torch.randn((2,), generator=cuda, device="cuda"), torch.tensor([1, 2], device="cuda")
+    before = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
+    loss = model(x, t, y).square().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) == before
+    assert torch.isfinite(loss) and all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def test_debug_nans_check_on_the_card(cuda):
+    from diffusion_classifier_tpu_torch.engine.steps import check_finite
+
+    ok = torch.randn((4, 4), generator=cuda, device="cuda")
+    check_finite("finite", [ok, ok.sum()])
+    with pytest.raises(FloatingPointError, match="non-finite values in a NaN"):
+        check_finite("a NaN", [ok, ok.sum() * float("nan")])

@@ -58,7 +58,8 @@ def test_port_experiment_scripts_import_without_jax_or_the_jax_package():
         capture_output=True, text=True, timeout=300, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert int(proc.stdout.split()[-1]) == 4  # inference and training, CheXpert DiT and CIFAR-10
+    # train, inference and OOD of the CheXpert DiT and UNet; train and inference of CIFAR-10
+    assert int(proc.stdout.split()[-1]) == 8
 
 
 def test_no_port_source_loads_files_by_path():

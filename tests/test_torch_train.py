@@ -392,3 +392,43 @@ def test_train_torch_runs_on_cpu(tmp_path, monkeypatch, capsys):
     assert any(e.get("name", "").startswith("Sample at epoch 0") for e in events)
     out = capsys.readouterr().out
     assert "step 4/4" in out and "Checkpoint saved" in out
+
+
+
+# --- debug_nans: the port's jax_debug_nans ------------------------------------------
+
+
+@pytest.mark.parametrize("debug_nans", [True, False])
+def test_debug_nans_raises_on_a_nan_loss(tmp_path, debug_nans):
+    eng = _engine(tmp_path, debug_nans=debug_nans)
+    eng.init_params()
+    real = eng._loss_fn
+    eng._loss_fn = lambda *args: real(*args) * float("nan")  # a NaN injected into the loss
+    eng._build_train_state(total_steps=2)
+    before = [p.detach().clone() for p in eng.state.params()]
+    batch = next(iter(SyntheticDataLoader(8, 8, batch_size=8, image_size=8, classes=2, seed=4).get_train_loader()))
+    if debug_nans:
+        with pytest.raises(FloatingPointError, match="non-finite values in the loss and gradients"):
+            eng.train_step(batch)
+        assert eng.state.step == 0  # raised before the update
+        for p, q in zip(eng.state.params(), before, strict=True):
+            torch.testing.assert_close(p.detach(), q, rtol=0, atol=0)
+    else:
+        assert torch.isnan(eng.train_step(batch)) and eng.state.step == 1
+
+
+@pytest.mark.parametrize("debug_nans", [True, False])
+def test_debug_nans_checks_classify_and_sample(tmp_path, debug_nans):
+    eng = _engine(tmp_path, debug_nans=debug_nans, sampling_steps=2)
+    eng.init_params()
+    with torch.no_grad():
+        for p in eng.state.ema_params():
+            p.fill_(float("nan"))
+    x = np.random.default_rng(7).uniform(-1, 1, (2, 8, 8, 3)).astype(np.float32)
+    if debug_nans:
+        for call in (eng.classify, eng.sample):
+            with pytest.raises(FloatingPointError, match="non-finite values in the denoiser output"):
+                call(x)
+    else:
+        assert tuple(eng.classify(x).shape) == (2,)
+        assert torch.isnan(eng.sample(x)).all()
