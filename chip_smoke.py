@@ -24,8 +24,8 @@ OOD entry points, the DiT through the loader). Phases:
    ``cuobjdump -sass`` (found beside ``nvcc``); fails if a bf16 entry of the
    forward, dk/dv or dq kernels has none (tensor cores unused);
 3. forward kernel vs its plain PyTorch version on the card at the main
-   path's shapes, strided q/k/v thirds and ragged and odd sequences in both
-   dtypes included, with timings (plain; kernel and SDPA as a yardstick in
+   path's shapes (the DiT's 1024 tokens and its OOD run's 64), strided
+   q/k/v thirds and ragged and odd sequences in both dtypes included, with timings (plain; kernel and SDPA as a yardstick in
    turns: kernel, SDPA, SDPA, kernel, each run 10 calls back to back, and
    again of single calls, which also count the wrapper's host time; the
    host microseconds of one wrapper call) and the bound;
@@ -99,8 +99,8 @@ OOD entry points, the DiT through the loader). Phases:
     and ISIC;
 19. the CheXpert DiT through the loader: ``train_torch.py`` on the tree (12
     backward launches a step), ``inference_torch.py`` (the mistakes file)
-    and ``ood_torch.py`` on MIMIC (64 tokens), 12 forward launches a
-    denoiser forward throughout.
+    and ``ood_torch.py`` on MIMIC (64 rows × 64 tokens, the shape phase 3
+    checks), 12 forward launches a denoiser forward throughout.
 
 Each path's launch and copy counts are set to 0 just before it runs and read
 just after. Any failed check raises and exits non-zero. The second-to-last line
@@ -136,6 +136,10 @@ KERNELS = {
 }
 # the classify megabatch (16 x 1 class per chunk) and the train batch
 DIT_SHAPE = (16, 1024, 6, 64)
+# the DiT's OOD classify on MIMIC or PadChest: 64 px → DWT 32 × 32 → 64
+# tokens at patch 4; 64 rows a forward, two forwards a batch of 16 images at
+# 4 evaluations × 2 classes
+DIT_OOD_SHAPE = (64, 64, 6, 64)
 # the CIFAR UNet's attention: level 2 (8x8 tokens, 256 = 8 x 32) and level 3
 # and mid (4x4 tokens, 512 = 8 x 64), at the classify megabatch (64 images x
 # 1 class a chunk) and the sampler's CFG pair (2 x 64)
@@ -153,6 +157,7 @@ RAGGED_CASES = [
 ]
 KERNEL_CASES = [
     (DIT_SHAPE, torch.bfloat16),
+    (DIT_OOD_SHAPE, torch.bfloat16),
     ((2, 1024, 6, 64), torch.float32),
     ((1, 1024, 3, 128), torch.bfloat16),
     *RAGGED_CASES,
@@ -1567,6 +1572,10 @@ def phase_cx_dit_tree(fa, config_cls, trees, workdir):
         p = torch.cat(preds)
         print(f"[19 dit tree ood] ood_torch.main(['--dataset', 'mimic']): {len(batches)} batches of {batches[0]['images'].shape} (64 tokens at patch 4), forwards {forwards}, flash launches {fa.FLASH_FWD.launches}; {metric_output}")
         check(fa.FLASH_FWD.launches == 12 * n_forwards > 0, "OOD launches")
+        # phase 3 holds the kernel against its plain version at this shape
+        tokens = (batches[0]["images"].shape[1] // 2 // config.patch_size) ** 2
+        check(set(forwards) == {("full", DIT_OOD_SHAPE[0])} and tokens == DIT_OOD_SHAPE[1],
+              f"OOD forwards {forwards} at {tokens} tokens, phase 3 checked {DIT_OOD_SHAPE}")
         check(bool(((p == 0) | (p == 1)).all()), f"predictions {p.tolist()}")
         launches["ood"] = fa.FLASH_FWD.launches
     finally:

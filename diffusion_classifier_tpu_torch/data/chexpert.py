@@ -1,7 +1,7 @@
 """CheXpert Pleural Effusion vs No Finding — the port's copy of ``data/chexpert.py``.
 
-The filter of the reference's ``dataset/chexpert.py``, with the CSV read by
-:mod:`.csv_frame` instead of pandas (the same rows in the same order):
+The filter of the reference's ``dataset/chexpert.py``, in pandas (imported
+when a CSV is read):
 
 - rows whose ``Path`` contains ``study1/view1_frontal.jpg``;
 - ``Pleural Effusion`` and ``No Finding``, empty → 0, rows with −1 in
@@ -26,30 +26,45 @@ from typing import Optional
 import numpy as np
 
 from . import loader
-from .csv_frame import read_columns, sample_positions, split_positions, to_float
 from .loader import MapDataLoader, Prefetcher
 
-__all__ = ["CheXpertDataLoader", "CheXpertDataset", "load_chexpert_rows"]
+__all__ = ["CheXpertDataLoader", "CheXpertDataset", "load_chexpert_rows", "split_frame"]
 
 EFFUSION, NO_FINDING = "Pleural Effusion", "No Finding"
 
 
 def load_chexpert_rows(csv_path: str) -> tuple[list[str], np.ndarray]:
     """``(paths, labels)`` of the balanced, shuffled frame (``_load_frame`` of the JAX module)."""
-    cols = read_columns(csv_path, ["Path", EFFUSION, NO_FINDING])
-    keep = [i for i, p in enumerate(cols["Path"]) if "study1/view1_frontal.jpg" in p]
-    paths = [cols["Path"][i] for i in keep]
-    effusion = to_float([cols[EFFUSION][i] for i in keep])
-    no_finding = to_float([cols[NO_FINDING][i] for i in keep])
-    ok = (effusion != -1) & (no_finding != -1) & ((effusion > 0) ^ (no_finding > 0))
-    rows = np.flatnonzero(ok)
-    active, inactive = rows[effusion[rows] == 1], rows[effusion[rows] == 0]
+    import pandas as pd
+
+    df = pd.read_csv(csv_path)
+    df = df[df["Path"].str.contains("study1/view1_frontal.jpg", regex=False)]
+    df = df[["Path", EFFUSION, NO_FINDING]].fillna({EFFUSION: 0, NO_FINDING: 0})
+    df = df[(df[EFFUSION] != -1) & (df[NO_FINDING] != -1)]
+    df = df[(df[EFFUSION] > 0) ^ (df[NO_FINDING] > 0)]
+    active, inactive = df[df[EFFUSION] == 1], df[df[EFFUSION] == 0]
     n = min(len(active), len(inactive))
-    active = active[sample_positions(len(active), n)]
-    inactive = inactive[sample_positions(len(inactive), n)]
-    rows = np.concatenate([active, inactive])
-    rows = rows[sample_positions(len(rows), len(rows))]
-    return [paths[i] for i in rows], effusion[rows].astype(int)
+    df = pd.concat([active.sample(n=n, random_state=42), inactive.sample(n=n, random_state=42)])
+    df = df.sample(n=len(df), random_state=42)  # shuffle
+    return df["Path"].tolist(), df[EFFUSION].astype(int).to_numpy()
+
+
+def split_frame(n: int, split: str) -> slice:
+    """Rows of ``split`` among ``n``, by row order: 80 / 10 / 10.
+
+    ``head(int(n·0.8))``, ``tail(int(n·0.2)).head(t // 2)`` and
+    ``tail(int(n·0.2)).tail(t // 2)``: a 20% tail of odd length drops its
+    middle row.
+    """
+    tail = int(n * 0.2)
+    half = tail // 2
+    if split == "train":
+        return slice(0, int(n * 0.8))
+    if split == "valid":
+        return slice(n - tail, n - tail + half)
+    if split == "test":
+        return slice(n - half, n)
+    raise ValueError(f"unknown split {split!r}")
 
 
 def _to_unit_range(arr: np.ndarray) -> np.ndarray:
@@ -80,8 +95,8 @@ class CheXpertDataset:
 
             self._decode_cache = DecodeCache(decode_cache_dir, image_size, fast=fast_decode)
         paths, labels = load_chexpert_rows(os.path.join(data_path, "train.csv"))
-        rows = split_positions(len(paths), split)
-        self.paths = [paths[i] for i in rows]
+        rows = split_frame(len(paths), split)
+        self.paths = paths[rows]
         self.labels = labels[rows]
         print(f"Dataset length: {len(self.paths)}")
 

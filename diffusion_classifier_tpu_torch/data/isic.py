@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 
 from . import loader
-from .csv_frame import read_columns, split_positions, to_float
+from .chexpert import split_frame
 from .loader import MapDataLoader, Prefetcher
 
 __all__ = ["ISICDataLoader", "ISICDataset"]
@@ -34,10 +34,12 @@ class ISICDataset:
         self.data_path = data_path
         self.image_size = image_size
         self.fast_decode = fast_decode
-        cols = read_columns(os.path.join(data_path, "train_balanced.csv"), ["image_name", "target"])
-        rows = split_positions(len(cols["image_name"]), split)
-        self.names = [cols["image_name"][i] for i in rows]
-        self.labels = to_float(cols["target"])[rows].astype(int)
+        import pandas as pd
+
+        df = pd.read_csv(os.path.join(data_path, "train_balanced.csv"))
+        df = df[split_frame(len(df), split)]
+        self.names = df["image_name"].tolist()
+        self.labels = df["target"].astype(int).to_numpy()
         print(f"Dataset length: {len(self.names)}")
 
     def __len__(self) -> int:

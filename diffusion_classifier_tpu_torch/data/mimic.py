@@ -16,7 +16,6 @@ import os
 import numpy as np
 
 from . import loader
-from .csv_frame import read_columns, to_float
 from .loader import MapDataLoader, Prefetcher
 
 __all__ = ["MimicOodDataLoader", "MimicOodDataset"]
@@ -36,13 +35,15 @@ class MimicOodDataset:
         self.data_path = data_path
         self.image_size = image_size
         self.fast_decode = fast_decode
-        cols = read_columns(os.path.join(data_path, "mimic_pa_metadata.csv"), ["image_path", LABEL])
-        labels = to_float(cols[LABEL])
-        zeros, ones = np.flatnonzero(labels == 0), np.flatnonzero(labels == 1)
+        import pandas as pd
+
+        df = pd.read_csv(os.path.join(data_path, "mimic_pa_metadata.csv"))
+        df = df[["image_path", LABEL]].fillna({LABEL: 0})
+        zeros, ones = df[df[LABEL] == 0], df[df[LABEL] == 1]
         n = min(len(zeros), len(ones))
-        rows = np.concatenate([zeros[:n], ones[:n]])
-        self.paths = [cols["image_path"][i] for i in rows]
-        self.labels = labels[rows].astype(int)
+        df = pd.concat([zeros.head(n), ones.head(n)])
+        self.paths = df["image_path"].tolist()
+        self.labels = df[LABEL].astype(int).to_numpy()
         print(f"Dataset length: {len(self.paths)}")
 
     def __len__(self) -> int:

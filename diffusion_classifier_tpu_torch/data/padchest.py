@@ -14,7 +14,6 @@ import os
 
 import numpy as np
 
-from .csv_frame import read_columns, to_float
 from .loader import MapDataLoader, Prefetcher
 
 __all__ = ["PadChestDataLoader", "PadChestDataset"]
@@ -33,11 +32,13 @@ class PadChestDataset:
         self.data_path = data_path
         self.wavelet_transform = wavelet_transform
         self.image_size = image_size
-        cols = read_columns(os.path.join(data_path, csv_name), [path_col, label_col])
-        labels = to_float(cols[label_col])
-        rows = np.flatnonzero(labels != -1)
-        self.paths = [cols[path_col][i] for i in rows]
-        self.labels = labels[rows].astype(int)
+        import pandas as pd
+
+        df = pd.read_csv(os.path.join(data_path, csv_name))
+        df = df[[path_col, label_col]].fillna({label_col: 0})
+        df = df[df[label_col] != -1]
+        self.paths = df[path_col].tolist()
+        self.labels = df[label_col].astype(int).to_numpy()
         print(f"Dataset length: {len(self.paths)}")
 
     def __len__(self) -> int:

@@ -5,21 +5,18 @@ layers, patch size from the config; with the Haar DWT a 256 px, 3-channel
 image enters as 128 × 128 × 12. ``data_path "synthetic"`` gives the
 port's copy of the JAX package's synthetic set (same arrays, same 256 train
 / 64 val split, same shuffles for the same seed); any other path is read as
-a CheXpert tree (``train.csv`` and its JPEGs) by :mod:`..data.chexpert`.
+a CheXpert tree (``train.csv`` and its JPEGs) by :mod:`..data.chexpert`;
+both come from :mod:`.chexpert_common`, which the CheXpert UNet shares.
 """
 
 from __future__ import annotations
 
-import os
-
-import numpy as np
 import torch
 
-from ..data.chexpert import CheXpertDataLoader
-from ..data.synthetic import SyntheticDataLoader
 from ..engine import DiffusionClassifier
 from ..models.dit import DiT, DiTConfig
 from ..utils.config import ExperimentConfig
+from .chexpert_common import build_data, write_mistakes
 
 __all__ = ["build_backbone", "build_data", "build_engine", "write_mistakes"]
 
@@ -51,57 +48,9 @@ def build_backbone(config: ExperimentConfig) -> DiT:
     )
 
 
-def build_data(config: ExperimentConfig):
-    if config.data_path == "synthetic":
-        return SyntheticDataLoader(
-            256, 64,
-            batch_size=config.batch_size,
-            image_size=config.image_size,
-            channels=config.image_channels,
-            classes=config.classes,
-            seed=config.seed,
-        )
-    return CheXpertDataLoader(
-        wavelet_transform=config.wavelet_transform,
-        data_path=config.data_path,
-        batch_size=config.batch_size,
-        num_workers=config.num_workers,
-        image_size=config.image_size,
-        seed=config.seed,
-        fast_decode=config.fast_decode,
-        decode_cache_dir=config.decode_cache_dir,
-    )
-
-
 def build_engine(config: ExperimentConfig, device="cuda") -> DiffusionClassifier:
     # encoder_type='DiT': integer labels go straight to the backbone's table
     if config.encoder_type != "DiT":
         raise ValueError("chexpert-dit uses encoder_type='DiT'")
     return DiffusionClassifier(build_backbone(config), config, device=device)
 
-
-def write_mistakes(config: ExperimentConfig, data, predictions) -> str | None:
-    """Write ``mistakes-ddpm-chexpert.txt``: the test split's misclassified paths, one a line.
-
-    ``predictions`` are the inference's per-batch predictions, in the test
-    loader's order (drop_last batching: the file covers the first
-    ``len(predictions)`` items). Only a single process writes it, since
-    under several each holds its own rows of every batch; returns the path,
-    or None where nothing was written (several processes, or a data set
-    without paths).
-    """
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        return None
-    dataset = getattr(data, "test_dataset", None)
-    if not hasattr(dataset, "mistake_paths"):
-        return None
-    preds = np.concatenate([np.asarray(p) for p in predictions])
-    mistakes = dataset.mistake_paths(preds)
-    out = os.path.join(config.experiment_path, "mistakes-ddpm-chexpert.txt")
-    os.makedirs(config.experiment_path, exist_ok=True)
-    with open(out, "w") as f:
-        f.write("\n".join(mistakes) + "\n")
-    print(f"{len(mistakes)} mistakes written to {out}")
-    return out

@@ -7,8 +7,8 @@ level 2 and in the mid block, 8 heads (96 wide at 768 channels), a 256-wide
 cross-attention. With the Haar DWT a 256 px, 3-channel image enters as
 128 × 128 × 12, and level 2 holds 32 × 32 = 1024 tokens. D=96 is outside the
 flash kernels' gate (D ∈ {32, 64, 128}), as it is outside the JAX package's,
-so both run that attention in plain arithmetic. The data are the CheXpert
-tree or the synthetic set, and the mistakes file, as in :mod:`.chexpert_dit`.
+so both run that attention in plain arithmetic. The data and the mistakes
+file are :mod:`.chexpert_common`'s, as for :mod:`.chexpert_dit`.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 from ..engine import DiffusionClassifier
 from ..models.unet import UNetCondition2D, UNetConfig
 from ..utils.config import ExperimentConfig
-from .chexpert_dit import build_data, write_mistakes
+from .chexpert_common import build_data, write_mistakes
 
 __all__ = ["build_backbone", "build_data", "build_engine", "write_mistakes"]
 

@@ -13,7 +13,6 @@ MIMIC and PadChest are read at 64 px, ISIC at 256 px over its test split
         python experiments/chexpert-dit/ood_torch.py --dataset mimic
 """
 
-import argparse
 import os
 import sys
 
@@ -21,35 +20,13 @@ REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 if REPO_ROOT not in sys.path:
     sys.path.insert(0, REPO_ROOT)
 
-from diffusion_classifier_tpu_torch.data.ood import OOD_DATASETS, make_ood_loader  # noqa: E402
+from diffusion_classifier_tpu_torch.experiments.chexpert_common import ood_main  # noqa: E402
 from diffusion_classifier_tpu_torch.experiments.chexpert_dit import build_engine  # noqa: E402
-from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig  # noqa: E402
-from diffusion_classifier_tpu_torch.utils.metrics import (  # noqa: E402
-    F1,
-    Accuracy,
-    Precision,
-    Recall,
-)
 
 
 def main(argv=None):
     """Returns ``(metric_output, predictions, batches)``."""
-    config = ExperimentConfig.from_env("INFERENCE_CONFIG")
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--dataset", choices=OOD_DATASETS, default=config.ood_dataset,
-                        help="OOD data set (default: the config's ood_dataset)")
-    parser.add_argument("--device", default="cuda")
-    args = parser.parse_args(argv)
-    loader = make_ood_loader(args.dataset, config)
-    engine = build_engine(config, device=args.device)
-    metric_output, predictions, batches = engine.inference(
-        val_dataloader=loader,
-        metrics=[Accuracy("accuracy"), F1("f1"), Precision("precision"), Recall("recall")],
-        classification=config.classification,
-        checkpoint_folder=config.checkpoint_folder,
-    )
-    print(args.dataset, [{k: round(v, 4) for k, v in d.items()} for d in metric_output])
-    return metric_output, predictions, batches
+    return ood_main(build_engine, argv, description=__doc__.splitlines()[0])
 
 
 if __name__ == "__main__":

@@ -67,6 +67,7 @@ def _strided_qkv(shape, dtype, gen):
         ((2, 200, 2, 32), torch.float32),
         ((1, 65, 1, 128), torch.float32),
         ((2, 256, 4, 32), torch.bfloat16),
+        ((64, 64, 6, 64), torch.bfloat16),  # the DiT's OOD classify at 64 px
         *BF16_RAGGED,
     ],
 )
