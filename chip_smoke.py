@@ -16,7 +16,9 @@ and 16 tokens × D=64) ELBO classification with the shared prefix and CFG
 sampling through ``experiments/cifar10/inference_torch.py``, and its
 training through ``experiments/cifar10/train_torch.py``; the CheXpert data
 path (JPEG loader, decode cache, the CheXpert UNet's train, inference and
-OOD entry points, the DiT through the loader). Phases:
+OOD entry points, the DiT through the loader); and the IPMSA family (MRI
+volume loader, the IPMSA UNet's train, inference and counterfactual
+explanation, the IPMSA DiT, the ResNet-50 baseline). Phases:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: compiles both kernels, prints the seconds, ptxas' register use and
@@ -24,8 +26,9 @@ OOD entry points, the DiT through the loader). Phases:
    ``cuobjdump -sass`` (found beside ``nvcc``); fails if a bf16 entry of the
    forward, dk/dv or dq kernels has none (tensor cores unused);
 3. forward kernel vs its plain PyTorch version on the card at the main
-   path's shapes (the DiT's 1024 tokens and its OOD run's 64), strided
-   q/k/v thirds and ragged and odd sequences in both dtypes included, with timings (plain; kernel and SDPA as a yardstick in
+   path's shapes (the DiT's 1024 tokens and its OOD run's 64; the IPMSA
+   UNet's classify and explain tails, its B=1 tail and its B=64 step at 256
+   tokens × 8 × 64; the IPMSA DiT's train batch), strided q/k/v thirds and ragged and odd sequences in both dtypes included, with timings (plain; kernel and SDPA as a yardstick in
    turns: kernel, SDPA, SDPA, kernel, each run 10 calls back to back, and
    again of single calls, which also count the wrapper's host time; the
    host microseconds of one wrapper call) and the bound;
@@ -34,7 +37,8 @@ OOD entry points, the DiT through the loader). Phases:
 5. the classify entry point: a seeded checkpoint, ``inference_torch.main()``
    with launch counts and no alignment copy, then classify throughput at
    B=16 and latency at B=1, each with a profiler table;
-6. backward kernel vs its plain version at the same kind of shapes, with
+6. backward kernel vs its plain version at the same kind of shapes (the
+   IPMSA UNet's B=64 step and the IPMSA DiT's train batch among them), with
    timings (plain; kernel and SDPA's backward in turns, back to back and
    single calls; host microseconds per call) and the bound;
 7. full-width DiT-b4 gradients at B=16, kernels vs plain attention on the
@@ -51,7 +55,7 @@ OOD entry points, the DiT through the loader). Phases:
 10. the full-width flagship UNet forward in bf16: kernel vs plain attention
     on the same weights (relative L2 ≤ 1e-2), ``full`` vs tail ∘ encode,
     11 launches a tail and none in the encode;
-11. the CIFAR classify entry point: a seeded checkpoint, then
+11. the CIFAR classify entry point: a seeded checkpoint, then (on one val batch)
     ``inference_torch.main()`` at B=64, 4 evaluations × 10 classes, with the
     encode and tail forwards counted against the count that
     ``auto_eval_group`` and the class chunk give, 11 launches a tail, no
@@ -100,10 +104,38 @@ OOD entry points, the DiT through the loader). Phases:
 19. the CheXpert DiT through the loader: ``train_torch.py`` on the tree (12
     backward launches a step), ``inference_torch.py`` (the mistakes file)
     and ``ood_torch.py`` on MIMIC (64 rows × 64 tokens, the shape phase 3
-    checks), 12 forward launches a denoiser forward throughout.
+    checks), 12 forward launches a denoiser forward throughout;
+20. IPMSA MRI trees under the workdir, from a seed: 32 samples × 11
+    volumes of 32 × 240 × 200 fp32 (FLAIR, CT2F and the brain mask at
+    W000/W048/W096, new T2 lesions at W048/W096) as ``.npy`` and as
+    ``.npy.lz4``, the three split pickles filtered through a blocklist by
+    ``IPMSADataset.remove_condition``;
+21. the IPMSA loader on the host (the lz4 decoder built with ``g++`` from
+    ``native/lz4dec.cpp`` into ``build/torch_native/``): images/s to 256 ×
+    256 × 10 serial and with 4 threads from each format, the pickle cache's
+    two epochs, batches identical across all of them; the lz4 decode rate;
+22. the IPMSA UNet (408,537,896 parameters): both kernels at its level 3
+    (8, 256, 8, 64) bf16 against their plain versions and SDPA, the plain
+    route (JAX's ``dot_product_attention`` arithmetic) at (8, 64, 8, 96)
+    against the fp32-product reference; a full-width forward with 9 flash
+    launches and 10 plain-route calls a tail, none in the encode;
+    ``experiments/ipmsa/train_torch.py`` for one epoch on the lz4 tree (B=8),
+    the step alone at B=8 and at the config's B=64 (ms, peak memory, idle
+    share); ``inference_torch.py`` (4 evaluations × 2 classes), classify at
+    B=8 and B=1; ``explain_torch.py`` for both forced labels (t = 0.5, 16
+    steps); fails if a kernel ran at a shape that phases 3, 6 and 22 did
+    not hold against its plain version;
+23. the IPMSA DiT (32,955,520 parameters, 1024 tokens × 6 × 64):
+    ``ipmsa-dit/train_torch.py`` and ``inference_torch.py`` on the tree, 12
+    launches a forward and a backward, every shape held by phases 3 and 6;
+24. the ResNet-50 baseline: ``ipmsa-classifier/train_torch.py`` on the
+    tree, the step alone at B=8 (ms, images/s, peak memory, idle share),
+    ``inference_torch.py`` with its metrics in range.
 
 Each path's launch and copy counts are set to 0 just before it runs and read
-just after. Any failed check raises and exits non-zero. The second-to-last line
+just after. Before each of phases 18-24 the card must hold under 0.5 GB (what
+an earlier phase leaves would inflate the phase's peak memory). Any failed
+check raises and exits non-zero. The second-to-last line
 is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Imports nothing of JAX, and nothing of the JAX package.
@@ -155,15 +187,29 @@ RAGGED_CASES = [
     ((1, 65, 1, 128), torch.bfloat16),
     ((3, 77, 2, 32), torch.bfloat16),
 ]
+# the IPMSA paths' other shapes (phases 22-23): the UNet's level 3 (256
+# tokens, 8 x 64) in its classify and explain tails (2 x 8 rows), its B=1
+# classify tail (2 rows) and its step at the config's B=64; the IPMSA DiT's
+# train batch of 8 (1024 tokens, 6 x 64). Phase 22 holds (8, 256, 8, 64).
+IP_TAIL_SHAPE = (16, 256, 8, 64)
+IP_B1_SHAPE = (2, 256, 8, 64)
+IP_B64_SHAPE = (64, 256, 8, 64)
+IP_DIT_SHAPE = (8, 1024, 6, 64)
 KERNEL_CASES = [
     (DIT_SHAPE, torch.bfloat16),
     (DIT_OOD_SHAPE, torch.bfloat16),
+    (IP_TAIL_SHAPE, torch.bfloat16),
+    (IP_B1_SHAPE, torch.bfloat16),
+    (IP_B64_SHAPE, torch.bfloat16),
+    (IP_DIT_SHAPE, torch.bfloat16),
     ((2, 1024, 6, 64), torch.float32),
     ((1, 1024, 3, 128), torch.bfloat16),
     *RAGGED_CASES,
 ]
 BWD_CASES = [
     (DIT_SHAPE, torch.bfloat16),
+    (IP_B64_SHAPE, torch.bfloat16),
+    (IP_DIT_SHAPE, torch.bfloat16),
     ((2, 1024, 6, 64), torch.float32),
     ((1, 512, 3, 128), torch.bfloat16),
     *RAGGED_CASES,
@@ -826,7 +872,8 @@ def numpy_plotter(saved):
 def phase_unet_classify(fa, cifar, config_cls, workdir):
     from diffusion_classifier_tpu_torch.diffusion.classify import auto_eval_group
 
-    cfg = dict(CIFAR_CONFIG, project_root=workdir, experiment_dir="cifar10")
+    # one val batch through the entry point (the synthetic set has two)
+    cfg = dict(CIFAR_CONFIG, evaluation_batches=0, project_root=workdir, experiment_dir="cifar10")
     config = config_cls.from_dict(dict(cfg))
     seeded = cifar.build_engine(config)
     seeded.init_params()
@@ -869,10 +916,11 @@ def phase_unet_classify(fa, cifar, config_cls, workdir):
     ms1 = cuda_ms(lambda: engine.classify(images[:1]), reps=10, warmup=2)
     print(f"[11 unet classify] classify B={b} ({evals} evals x {c} classes, shared prefix): {ms64:.2f} ms -> {b * 1e3 / ms64:.2f} images/s")
     print(f"[11 unet classify] classify B=1 latency: {ms1:.2f} ms")
-    for batch, ms in ((b, ms64), (1, ms1)):
-        busy, cats, _ = profile_table(f"[11 unet classify] classify B={batch}", lambda: engine.classify(images[:batch]))
-        print(f"[11 unet classify] classify B={batch}: device busy {busy:.2f} of {ms:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / ms):.1f}%; flash forward {cats['flash forward']:.2f} ms ({100 * cats['flash forward'] / busy:.1f}%)")
-    # the split: one encode on B and one tail on B (1 class a chunk), as the call runs them
+    busy, cats, _ = profile_table("[11 unet classify] classify B=1", lambda: engine.classify(images[:1]))
+    print(f"[11 unet classify] classify B=1: device busy {busy:.2f} of {ms1:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / ms1):.1f}%; flash forward {cats['flash forward']:.2f} ms ({100 * cats['flash forward'] / busy:.1f}%)")
+    # the split: one encode on B and one tail on B (1 class a chunk), as the call
+    # runs them; the B=64 call's device time is their sum (a profile of the
+    # whole call's ~94,000 kernels costs the run ~30 s and gave the same)
     z = torch.rand((b, 32, 32, 3), generator=torch.Generator().manual_seed(8)).cuda() * 2 - 1
     lg = torch.zeros((b,), device="cuda")
     labels = torch.zeros((b,), dtype=torch.long, device="cuda")
@@ -881,7 +929,8 @@ def phase_unet_classify(fa, cifar, config_cls, workdir):
         enc_ms, enc, _ = profile_table(f"[11 unet classify] one encode B={b}", lambda: engine._encode(z, lg))
         tail_ms, tail, _ = profile_table(f"[11 unet classify] one tail B={b}", lambda: engine._tail(state, labels))
     n_enc, n_tail = want[("encode", group * b)] // n_batches, want[("tail", group * b * cc)] // n_batches
-    print(f"[11 unet classify] B={b} split: {n_enc} encodes x {enc_ms:.3f} ms = {n_enc * enc_ms:.2f} ms, {n_tail} tails x {tail_ms:.3f} ms = {n_tail * tail_ms:.2f} ms device time; flash forward {tail['flash forward']:.3f} ms a tail ({100 * tail['flash forward'] / tail_ms:.1f}%), {enc['flash forward']:.3f} ms an encode")
+    busy = n_enc * enc_ms + n_tail * tail_ms
+    print(f"[11 unet classify] B={b} split: {n_enc} encodes x {enc_ms:.3f} ms = {n_enc * enc_ms:.2f} ms, {n_tail} tails x {tail_ms:.3f} ms = {n_tail * tail_ms:.2f} ms device time; flash forward {tail['flash forward']:.3f} ms a tail ({100 * tail['flash forward'] / tail_ms:.1f}%), {enc['flash forward']:.3f} ms an encode; classify B={b}: device busy {busy:.2f} of {ms64:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / ms64):.1f}%")
     return launches, {"images_per_s_b64": b * 1e3 / ms64, "latency_ms_b1": ms1}
 
 
@@ -1331,21 +1380,94 @@ def phase_loader(trees, workdir):
 
 @contextlib.contextmanager
 def plain_attention_calls():
-    """Counts the dispatcher's plain-attention calls (the route outside the kernels' gate): yields ``[count]``."""
+    """Counts the dispatcher's plain-attention calls (``dot_product_attention``, the route outside the kernels' gate): yields ``[count]``."""
     from diffusion_classifier_tpu_torch.ops import attention as attention_module
 
-    real = attention_module.flash_attention_reference
+    real = attention_module.dot_product_attention
     calls = [0]
 
     def counted(*args, **kwargs):
         calls[0] += 1
         return real(*args, **kwargs)
 
-    attention_module.flash_attention_reference = counted
+    attention_module.dot_product_attention = counted
     try:
         yield calls
     finally:
-        attention_module.flash_attention_reference = real
+        attention_module.dot_product_attention = real
+
+
+@contextlib.contextmanager
+def kernel_shapes(fa):
+    """Records the ``(shape, dtype)`` of q at every call of either kernel's wrapper: yields ``{kernel name: set}``."""
+    seen = {fa.FLASH_FWD.name: set(), fa.FLASH_BWD.name: set()}
+    real = {}
+    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD):
+        cls = type(kernel)
+        real[cls] = cls.__call__
+
+        def recorded(self, q, *args, _call=cls.__call__, **kwargs):
+            seen[self.name].add((tuple(q.shape), q.dtype))
+            return _call(self, q, *args, **kwargs)
+
+        cls.__call__ = recorded
+    try:
+        yield seen
+    finally:
+        for cls, call in real.items():
+            cls.__call__ = call
+
+
+def check_covered(fa, seen, tag):
+    """Fails if a path launched a kernel at a shape that no kernel check held against its plain version."""
+    checked = {
+        fa.FLASH_FWD.name: set(KERNEL_CASES) | {(IP_SHAPE, torch.bfloat16)},
+        fa.FLASH_BWD.name: set(BWD_CASES) | {(IP_SHAPE, torch.bfloat16)},
+    }
+    for name, shapes in seen.items():
+        print(f"{tag} {name} launched at " + ", ".join(f"{s} {str(d)[6:]}" for s, d in sorted(shapes, key=str)))
+        missed = shapes - checked[name]
+        check(not missed, f"{tag}: {name} ran at {sorted(missed, key=str)}, which no kernel check covered")
+
+
+def live_cuda_report(top=6):
+    """Prints the live CUDA tensors gc can see (by storage) and, for the largest, who holds them."""
+    tensors = [o for o in gc.get_objects() if isinstance(o, torch.Tensor) and o.is_cuda]
+    storages = {}  # data pointer -> (bytes, index into tensors)
+    for i, t in enumerate(tensors):
+        storage = t.untyped_storage()
+        storages[storage.data_ptr()] = (storage.nbytes(), i)
+    print(f"  {len(tensors)} CUDA tensors visible to gc, {sum(n for n, _ in storages.values()) / 1e9:.3f} GB in {len(storages)} storages")
+    engines = [o for o in gc.get_objects() if type(o).__name__ in ("DiffusionClassifier", "Classifier", "Denoiser")]
+    print(f"  live engines and denoisers: {[type(o).__name__ for o in engines]}")
+    skip = {id(tensors), id(engines)}
+    for nbytes, i in sorted(storages.values(), reverse=True)[:top]:
+        chain, obj = [], tensors[i]
+        for _ in range(6):
+            holders = [r for r in gc.get_referrers(obj) if id(r) not in skip and type(r).__name__ != "frame"]
+            skip.add(id(holders))
+            if not holders:
+                break
+            obj = holders[0]
+            desc = type(obj).__name__
+            if isinstance(obj, dict):
+                desc += "{" + ", ".join(map(str, list(obj)[:5])) + "}"
+            chain.append(desc)
+        t = tensors[i]
+        print(f"  {nbytes / 1e6:.1f} MB {tuple(t.shape)} {t.dtype}: held by " + " <- ".join(chain))
+
+
+def released(tag, limit_gb=0.5):
+    """Fails unless the card holds almost nothing before a phase: a tensor left from an earlier phase inflates this one's peak memory."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"{tag} allocated on the card before the phase: {held:.3f} GB")
+    if held > limit_gb:
+        live_cuda_report()
+    check(held <= limit_gb, f"{tag}: {held:.3f} GB still allocated from earlier phases")
+    return held
 
 
 def phase_cx_unet_forward(fa, cx_unet, config_cls):
@@ -1584,6 +1706,509 @@ def phase_cx_dit_tree(fa, config_cls, trees, workdir):
     return launches
 
 
+# --- the IPMSA family: MRI volume trees, the loader, the UNet, the DiT, the ResNet baseline
+
+# the IPMSA experiments at 256 px: 5 slices of W000 FLAIR and CT2F = 10
+# channels, 2 classes, bf16 (the ResNet in fp32, as its JAX module), the JAX
+# bench's batch of 8 (bench.py:1312), 4 loader threads
+IP_CONFIG = {
+    "image_size": 256, "image_channels": 10, "slices": 5, "wavelet_transform": True, "classes": 2,
+    "mixed_precision": "bf16", "batch_size": 8, "num_workers": 4, "evaluation_per_stage": [4],
+    "evaluation_batches": 0, "data_path": "volumes",
+}
+# volumes [D, H, W]: LORISTransforms' Resize pads H and W to the next power
+# of two with the volume's minimum, (pad // 2) a side, so even sides whose
+# larger one lies in (128, 256] come out at 256 px; D is cut from a trial
+# scan's ~60 slices to 32 (GetSlice keeps the centre 5)
+IP_VOLUME = (32, 240, 200)
+IP_SPLITS = {"train": 16, "val": 8, "test": 8}
+IP_TIMEPOINTS = ("W000", "W048", "W096")
+IP_UNET_PARAMS = 408_537_896  # experiments/ipmsa/common.py's backbone at 256 px, 10 channels, DWT
+IP_DIT_PARAMS = 32_955_520  # experiments/ipmsa-dit/common.py's at patch 4
+# the UNet's attention at B=8: level 3 (16 x 16 = 256 tokens, 512 = 8 x 64)
+# on the flash kernels, level 4 and the mid block (8 x 8 = 64 tokens, 768 =
+# 8 x 96) on the plain route; self-attentions a forward: 4 down + 5 up at
+# level 3, 4 down + 5 up at level 4 and 1 in the mid block, all in the tail
+IP_SHAPE = (8, 256, 8, 64)
+IP_PLAIN_SHAPE = (8, 64, 8, 96)
+IP_FLASH_A_TAIL, IP_PLAIN_A_TAIL = 9, 10
+IP_EXPLAIN_STEPS = 16  # the config's 128 sampling steps cut to 16 over [0.5, 0]
+
+
+def write_ipmsa_trees(root, seed):
+    """MRI volume trees (``.npy`` and ``.npy.lz4``, the same arrays), the split pickles and a blocklist.
+
+    Samples alternate active (new T2 lesions in the centre slab at W048 or
+    W096) and inactive. The index holds ``{split}_dataset.pkl`` with paths
+    relative to ``$DATA_PATH`` and no extension, as the trial's index does;
+    ``IPMSADataset.remove_condition`` with the blocklist writes the
+    ``_filtered`` pickles the experiments read. Returns the folders and the
+    byte and file counts.
+    """
+    import pickle
+
+    import numpy as np
+
+    from diffusion_classifier_tpu_torch.data.ipmsa import IPMSADataset
+
+    rng = np.random.default_rng(seed)
+    d, h, w = IP_VOLUME
+    zz, yy, xx = np.meshgrid(*(np.linspace(-1, 1, n, dtype=np.float32) for n in IP_VOLUME), indexing="ij")
+    brain = ((zz / 1.2) ** 2 + yy**2 + xx**2 < 0.8).astype(np.float32)
+    roots = {fmt: _mkdir(os.path.join(root, f"volumes-{fmt}")) for fmt in ("npy", "lz4")}
+    split_dir = _mkdir(os.path.join(root, "split"))
+    template = {
+        "FLAIR": [["MRI_AND_LABEL", "FLAIR", tp] for tp in IP_TIMEPOINTS],
+        "CT2F": [["MRI_AND_LABEL", "CT2F", tp] for tp in IP_TIMEPOINTS],
+        "NEWT2": [["MRI_AND_LABEL", "NEWT2", tp] for tp in IP_TIMEPOINTS[1:]],
+        "MASK": [["MRI_AND_LABEL", "MASK", tp] for tp in IP_TIMEPOINTS],
+        "AGE": [["CLINICAL", "AGE"]],
+    }
+    n, files, nbytes = 0, 0, 0
+    for split, count in IP_SPLITS.items():
+        entries = {}
+        for i in range(count):
+            rel_dir = os.path.join(f"trial{n % 3}", f"patient{n:04d}")
+            for r in roots.values():
+                _mkdir(os.path.join(r, rel_dir))
+            entry = {"MRI_AND_LABEL": {k: {} for k in ("FLAIR", "CT2F", "NEWT2", "MASK")},
+                     "CLINICAL": {"AGE": float(30 + n)}}
+            for key in ("FLAIR", "CT2F", "NEWT2", "MASK"):
+                for t, tp in enumerate(IP_TIMEPOINTS):
+                    if key == "NEWT2" and t == 0:
+                        continue
+                    if key == "FLAIR":
+                        vol = (rng.random(IP_VOLUME, dtype=np.float32) * 40 + 60 * (1 + zz)) * brain
+                    elif key == "MASK":
+                        vol = brain
+                    elif key == "CT2F":
+                        vol = (rng.random(IP_VOLUME, dtype=np.float32) > 0.995) * brain
+                    else:
+                        vol = np.zeros(IP_VOLUME, np.float32)
+                        if n % 2 == 0 and t == 1 + n % 4 // 2:
+                            vol[d // 2, h // 2 - 4: h // 2 + 4, w // 2: w // 2 + 6] = 1.0
+                    rel = os.path.join(rel_dir, f"{key.lower()}_{tp}")
+                    entry["MRI_AND_LABEL"][key][tp] = rel
+                    data = io_npy(vol.astype(np.float32))
+                    for fmt, r in roots.items():
+                        body = data if fmt == "npy" else lz4_stored_frame(data)
+                        with open(os.path.join(r, rel + (".npy" if fmt == "npy" else ".npy.lz4")), "wb") as f:
+                            f.write(body)
+                        files += 1
+                        nbytes += len(body)
+            entries[f"{split}{i:03d}"] = entry
+            n += 1
+        with open(os.path.join(split_dir, f"{split}_dataset.pkl"), "wb") as f:
+            pickle.dump({"dataset_dict": entries, "item_template": template}, f)
+    # a blocklist line names <x>/<trial>/<patient>/... by the absolute-path
+    # parts 3 and 4 of a volume; this one names a pair no sample has
+    blocklist = os.path.join(split_dir, "blocklist.txt")
+    with open(blocklist, "w") as f:
+        f.write("x/trial9/patient9999/flair\n")
+    os.environ["DATA_PATH"] = roots["npy"]
+    kept = {}
+    for split in IP_SPLITS:
+        ds = IPMSADataset(os.path.join(split_dir, f"{split}_dataset.pkl"))
+        ds.remove_condition(blocklist, name="filtered")
+        kept[split] = len(ds)
+    check(kept == IP_SPLITS, f"remove_condition kept {kept}")
+    return {"roots": roots, "split": split_dir, "files": files, "bytes": nbytes}
+
+
+def io_npy(arr):
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def lz4_stored_frame(data):
+    """``data`` as an LZ4 frame of stored 4 MB blocks with its content size (no lz4 package here)."""
+    import struct
+
+    out = [struct.pack("<I", 0x184D2204), bytes([0x48, 0x70]), struct.pack("<Q", len(data)), b"\x00"]
+    for i in range(0, len(data), 4 << 20):
+        chunk = data[i: i + (4 << 20)]
+        out += [struct.pack("<I", len(chunk) | 0x80000000), chunk]
+    out.append(struct.pack("<I", 0))
+    return b"".join(out)
+
+
+def phase_ipmsa_trees(workdir):
+    start = time.perf_counter()
+    tree = write_ipmsa_trees(os.path.join(workdir, "ipmsa"), seed=30)
+    print(f"[20 ipmsa trees] {tree['files']} volume files, {tree['bytes'] / 1e9:.3f} GB (.npy and .npy.lz4 of the same {sum(IP_SPLITS.values())} samples x 11 volumes of {IP_VOLUME} fp32), split pickles {IP_SPLITS} filtered through a blocklist, in {time.perf_counter() - start:.1f} s")
+    return tree
+
+
+def ipmsa_experiment(tree, workdir, name):
+    """``project_root``/``experiment_dir`` for an IPMSA experiment whose ``split/`` is the tree's."""
+    exp = _mkdir(os.path.join(workdir, name))
+    link = os.path.join(exp, "split")
+    if not os.path.exists(link):
+        os.symlink(tree["split"], link)
+    return {"project_root": workdir, "experiment_dir": name}
+
+
+def phase_ipmsa_loader(tree, workdir):
+    """The IPMSA loader on the host: images/s serial and with 4 threads from .npy and .npy.lz4, the pickle cache, batch identity."""
+    import numpy as np
+
+    from diffusion_classifier_tpu_torch.data.ipmsa import IPMSADataset, _IPMSABatcher, make_default_transform
+    from diffusion_classifier_tpu_torch.utils import lz4io
+
+    index = os.path.join(tree["split"], "val_dataset_filtered.pkl")
+    transform = make_default_transform(5)
+
+    def epoch(fmt, workers, cache_dir=None):
+        os.environ["DATA_PATH"] = tree["roots"][fmt]
+        ds = IPMSADataset(index, cache_dir=cache_dir)
+        ds.set_transform(transform)
+        start = time.perf_counter()
+        batches = list(_IPMSABatcher(ds, 8, False, 0, num_workers=workers))
+        return batches, len(ds) / (time.perf_counter() - start)
+
+    rates, runs = {}, {}
+    for fmt in ("npy", "lz4"):
+        for workers in (0, 4):
+            runs[fmt, workers], rates[f"{fmt}_{workers}_workers"] = epoch(fmt, workers)
+    cache = os.path.join(workdir, "ipmsa-cache")
+    runs["cache", 1], rates["lz4_4_workers_cache_first_epoch"] = epoch("lz4", 4, cache)
+    runs["cache", 2], rates["lz4_4_workers_cache_second_epoch"] = epoch("lz4", 4, cache)
+    want = runs["npy", 0]
+    same = all(
+        len(b) == len(want) and all(np.array_equal(x[k], y[k]) for x, y in zip(b, want) for k in ("images", "prompt"))
+        for b in runs.values()
+    )
+    check(same, "IPMSA batches differ between formats, worker counts or the cache")
+    images = want[0]["images"]
+    check(images.shape == (8, 256, 256, 10) and images.dtype == np.float32, f"IPMSA images {images.shape}")
+    labels = np.concatenate([b["prompt"] for b in want])
+    check(0 < labels.sum() < len(labels), f"IPMSA labels {labels.tolist()}")
+    # the lz4 decode alone: one FLAIR volume's frame, decoded in memory
+    path = os.path.join(tree["roots"]["lz4"], "trial0", "patient0000", "flair_W000.npy.lz4")
+    with open(path, "rb") as f:
+        frame = f.read()
+    lz4io.decompress(frame)
+    reps = 20
+    start = time.perf_counter()
+    for _ in range(reps):
+        out = lz4io.decompress(frame)
+    decode_mb_s = reps * len(out) / 1e6 / (time.perf_counter() - start)
+    print(f"[21 ipmsa loader] val split, {len(want) * 8} samples to {images.shape[1:]} (decode 11 volumes of {IP_VOLUME}, GetSlice, Denoise, Resize, BlurLabel3D, Normalize), host images/s ({os.cpu_count()} cores): " + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()) + f"; batches identical across formats, worker counts and the cache: {same}; lz4 decode {decode_mb_s:.0f} MB/s ({len(out) / 1e6:.1f} MB a volume, stored blocks); labels {labels.tolist()}")
+    return {"images_per_s": rates, "lz4_decode_mb_s": decode_mb_s, "identical": same,
+            "lz4_library": lz4io.library_path()}
+
+
+def phase_ipmsa_kernels(fa):
+    """The kernels at the IPMSA UNet's level 3 (8, 256, 8, 64) bf16 and the plain route at (8, 64, 8, 96) bf16."""
+    from diffusion_classifier_tpu_torch.ops.attention import dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    dtype = torch.bfloat16
+    b, s, h, d = IP_SHAPE
+    q, k, v, do = (torch.randn(IP_SHAPE, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    reset_counts(fa)
+    out, lse = fa.FLASH_FWD(q, k, v, lse=True)
+    grads = fa.FLASH_BWD(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    check(fa.FLASH_FWD.copies == 0 and fa.FLASH_BWD.copies == 0, "the kernels copied an input at the IPMSA shape")
+    want = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(out, want, **TOL[dtype])
+    want_grads = fa.flash_attention_bwd_reference(q, k, v, do, out)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want_grads):
+        torch.testing.assert_close(g, w, **TOL[dtype], msg=lambda m: f"{name} at {IP_SHAPE}: {m}")
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    fwd = {"shape": list(IP_SHAPE), "dtype": "bfloat16", "qkv": "separate", "path": "ipmsa unet level 3",
+           "max_abs_err": (out.float() - want.float()).abs().max().item()}
+    fwd["plain_ms"] = cuda_ms(lambda: fa.flash_attention_reference(q, k, v), inner=BACK_TO_BACK)
+    timed_in_turns(fwd, lambda: fa.FLASH_FWD(q, k, v), lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    fwd["device_ms"] = device_ms(lambda: fa.FLASH_FWD(q, k, v))
+    fwd["library_device_ms"] = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    fwd["bound_ms"], fwd["bound_by"] = bound(4 * b * h * s * s * d, 4 * q.numel() * q.element_size(), dtype)
+    bwd = {"shape": list(IP_SHAPE), "dtype": "bfloat16", "qkv": "separate", "path": "ipmsa unet level 3",
+           "max_abs_err": max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, want_grads))}
+    kernel = lambda: fa.FLASH_BWD(q, k, v, out, do, lse)  # noqa: E731
+    bwd["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, do, out), inner=BACK_TO_BACK)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qh, kh, vh))
+    og = F.scaled_dot_product_attention(qg, kg, vg)
+    dog = do.transpose(1, 2).contiguous()
+    sdpa = lambda: torch.autograd.grad(og, (qg, kg, vg), dog, retain_graph=True)  # noqa: E731
+    timed_in_turns(bwd, kernel, sdpa)
+    bwd["device_ms"] = device_ms(kernel)
+    bwd["library_device_ms"] = device_ms(sdpa)
+    bwd["bound_ms"], bwd["bound_by"] = bound(10 * b * h * s * s * d, 8 * q.numel() * q.element_size() + lse.numel() * 4, dtype)
+    for tag, r in (("forward", fwd), ("backward", bwd)):
+        print(f"[22 ipmsa kernels] {tag} {IP_SHAPE} bf16: max |kernel - plain| {r['max_abs_err']:.3e} (atol/rtol 2e-2); device time kernel {r['device_ms']:.4f} ms, SDPA {r['library_device_ms']:.4f} ms; CUDA events back to back kernel {r['ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms (kernel/SDPA {r['library_ratio']:.3f}), plain {r['plain_ms']:.4f} ms; single calls kernel {r['call_ms']:.4f} ms; host {r['host_us']:.1f} us a call; bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+    # the route outside the gate: JAX's dot_product_attention arithmetic, held
+    # to the kernels' fp32-product yardstick within the bf16 noise floor
+    q, k, v = (torch.randn(IP_PLAIN_SHAPE, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    got = dot_product_attention(q, k, v)
+    yard = fa.flash_attention_reference(q, k, v)
+    torch.testing.assert_close(got, yard, **TOL[dtype])
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    plain = {"shape": list(IP_PLAIN_SHAPE), "dtype": "bfloat16",
+             "max_abs_err_vs_fp32_product_reference": (got.float() - yard.float()).abs().max().item(),
+             "ms": cuda_ms(lambda: dot_product_attention(q, k, v), inner=BACK_TO_BACK),
+             "reference_ms": cuda_ms(lambda: fa.flash_attention_reference(q, k, v), inner=BACK_TO_BACK),
+             "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), inner=BACK_TO_BACK)}
+    print(f"[22 ipmsa plain route] {IP_PLAIN_SHAPE} bf16 dot_product_attention: max |route - fp32-product reference| {plain['max_abs_err_vs_fp32_product_reference']:.3e} (atol/rtol 2e-2); {plain['ms']:.4f} ms a call back to back, the fp32-product reference {plain['reference_ms']:.4f} ms, SDPA {plain['sdpa_ms']:.4f} ms")
+    return fwd, bwd, plain
+
+
+def ipmsa_denoiser(ip, config_cls, b=8):
+    from diffusion_classifier_tpu_torch.engine.denoiser import Denoiser
+    from diffusion_classifier_tpu_torch.models.encoders import ClassEmbedder
+    from diffusion_classifier_tpu_torch.models.layers import reset_parameters
+
+    model = ip.build_backbone(config_cls.from_dict(dict(IP_CONFIG, encoder_type="nn")))
+    n_params = sum(p.numel() for p in model.parameters())
+    model = Denoiser(model, ClassEmbedder(2, 256, torch.bfloat16))
+    reset_parameters(model, torch.Generator().manual_seed(0))
+    return model.to("cuda").eval(), n_params
+
+
+def phase_ipmsa_unet_forward(fa, ip, config_cls):
+    """The IPMSA UNet at full width: parameters, launches and plain calls a forward (full, encode, tail), tail ∘ encode = full."""
+    model, n_params = ipmsa_denoiser(ip, config_cls)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    b = IP_SHAPE[0]
+    x = torch.rand((b, 128, 128, 40), generator=gen, device="cuda") * 2 - 1
+    t = torch.randn((b,), generator=gen, device="cuda") * 4
+    y = torch.randint(0, 3, (b,), generator=gen, device="cuda")
+    counts = {}
+    with torch.no_grad():
+        for mode in ("full", "encode", "tail"):
+            reset_counts(fa)
+            with plain_attention_calls() as calls:
+                if mode == "full":
+                    full = model(x, t, y)
+                elif mode == "encode":
+                    state = model(x, t, None, mode="encode")
+                else:
+                    tail = model(None, None, y, mode="tail", prefix_state=state)
+                torch.cuda.synchronize()
+            counts[mode] = (fa.FLASH_FWD.launches, calls[0])
+    check_no_copies(fa, "[22 ipmsa unet]")
+    rel = ((tail - full).norm() / full.norm()).item()
+    print(f"[22 ipmsa unet] IPMSA UNet {n_params} parameters (backbone), forward B={b} on 128x128x40 bf16: (flash launches, plain-route calls) {counts}; tail(encode) vs full rel L2 {rel:.3e}")
+    check(n_params == IP_UNET_PARAMS, f"{n_params} parameters, the IPMSA UNet has {IP_UNET_PARAMS}")
+    want = (IP_FLASH_A_TAIL, IP_PLAIN_A_TAIL)
+    check(counts == {"full": want, "encode": (0, 0), "tail": want}, f"launches and plain calls {counts}")
+    check(full.shape == (b, 128, 128, 40) and bool(torch.isfinite(full).all()), "IPMSA UNet output")
+    check(rel <= 1e-3, f"tail(encode(x)) differs from the full forward: {rel}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_ipmsa_unet_train(fa, ip, config_cls, tree, workdir):
+    """``experiments/ipmsa/train_torch.py`` for one epoch on the tree, then the step alone."""
+    cfg = dict(IP_CONFIG, encoder_type="nn", num_epochs=1, log_every_steps=1, use_comet=True,
+               sampling_steps=4, **ipmsa_experiment(tree, workdir, "ipmsa-unet"))
+    os.environ["DATA_PATH"] = tree["roots"]["lz4"]
+    os.environ["TRAINING_CONFIG"] = json.dumps(cfg)
+    config = config_cls.from_dict(dict(cfg))
+    saved = []
+    reset_counts(fa)
+    start = time.perf_counter()
+    with plain_attention_calls() as calls:
+        engine = load_script("train_torch", "ipmsa").main([], plot_function=numpy_plotter(saved))
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches, calls[0])
+    steps = IP_SPLITS["train"] // config.batch_size
+    with open(os.path.join(config.experiment_path, "track.jsonl")) as f:
+        losses = [e["value"] for e in map(json.loads, f) if e.get("name") == "loss" and e.get("step") is not None]
+    print(f"[22 ipmsa unet train] train_torch.main() on the .npy.lz4 tree, bf16, B={config.batch_size}: {len(losses)} steps in {seconds:.1f} s (decode, eval at 4 evaluations, plot sampling at 4 steps, checkpoint included); (flash forward, flash backward, plain-route calls) {launches}; loss first {losses[0]:.5f} last {losses[-1]:.5f}")
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(launches[1] == IP_FLASH_A_TAIL * steps, f"{launches[1]} backward launches for {steps} steps")
+    check(len(saved) == 1, "the plot function did not run")
+    for name in ("ema_params.pt", "train_state.pt", "experiment_state.json"):
+        check(os.path.isfile(os.path.join(config.experiment_path, "checkpoints", name)), f"no checkpoints/{name}")
+    # the step alone, on the trained engine's parameters: at the run's B=8
+    # (the JAX bench's), then at the config's B=64 without remat (the tree's
+    # train batch 8 times over: the tree holds 16 training samples)
+    import numpy as np
+
+    batch = next(iter(ip.build_data(config).get_train_loader()))
+    rates = {"b8": step_numbers(engine, batch, "[22 ipmsa unet train] step B=8")}
+    big = {k: np.concatenate([batch[k]] * 8) for k in ("images", "prompt")}
+    rates["b64"] = step_numbers(engine, big, "[22 ipmsa unet train] step B=64, remat False")
+    del engine, batch, big
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rates, launches
+
+
+def phase_ipmsa_unet_classify(fa, ip, config_cls, tree, workdir):
+    """``inference_torch.py`` on the trained checkpoint (B=8, 4 evaluations x 2 classes), classify B=8 and B=1, then ``explain_torch.py``."""
+    import numpy as np
+
+    from diffusion_classifier_tpu_torch.diffusion.classify import auto_eval_group
+
+    cfg = dict(IP_CONFIG, encoder_type="nn", **ipmsa_experiment(tree, workdir, "ipmsa-unet"))
+    os.environ["DATA_PATH"] = tree["roots"]["lz4"]
+    os.environ["INFERENCE_CONFIG"] = json.dumps(cfg)
+    config = config_cls.from_dict(dict(cfg))
+    forwards = {}
+    hook = count_forwards(forwards)
+    try:
+        reset_counts(fa)
+        with plain_attention_calls() as calls:
+            metric_output, preds, batches = load_script("inference_torch", "ipmsa").main([])
+            torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    b, evals = config.batch_size, config.evaluation_per_stage[0]
+    group = auto_eval_group(evals, b, 2, img_elems=128 * 128 * 40)
+    chunk = 1 if b >= 16 else 2  # class_chunk -1: one class a tail from B=16, both below
+    tails = evals // group * 2 // chunk
+    want = {("encode", group * b): evals // group, ("tail", group * b * chunk): tails}
+    p = torch.cat(preds)
+    launches = fa.FLASH_FWD.launches
+    print(f"[22 ipmsa unet classify] inference_torch.main() on the trained checkpoint: {metric_output}; forwards {forwards} (expected {want}), flash launches {launches}, plain-route calls {calls[0]}")
+    check(forwards == want, f"forwards {forwards}, expected {want}")
+    check(launches == IP_FLASH_A_TAIL * tails and calls[0] == IP_PLAIN_A_TAIL * tails, f"launches {launches}, plain calls {calls[0]}")
+    check(len(p) == b and bool(((p == 0) | (p == 1)).all()) and len(metric_output) == 4, f"predictions {p.tolist()}")
+    check_no_copies(fa, "[22 ipmsa unet classify]")
+
+    engine = ip.build_engine(config)
+    engine.init_params()
+    engine.load_checkpoint(os.path.join(config.experiment_path, "checkpoints"), train_state=False)
+    images = batches[0]["images"]
+    ms8 = cuda_ms(lambda: engine.classify(images), reps=3, warmup=1)
+    ms1 = cuda_ms(lambda: engine.classify(images[:1]), reps=5, warmup=1)
+    rates = {"images_per_s_b8": b * 1e3 / ms8, "ms_b8": ms8, "latency_ms_b1": ms1}
+    busy, _, kernels = profile_table(f"[22 ipmsa unet classify] classify B={b}", lambda: engine.classify(images))
+    rates["b8"] = {"device_ms": busy, "kernels": kernels, "idle_percent": 100 * max(0.0, 1 - busy / ms8)}
+    print(f"[22 ipmsa unet classify] classify B={b} ({evals} evals x 2 classes, shared prefix): {ms8:.2f} ms median wall -> {b * 1e3 / ms8:.2f} images/s, device busy {busy:.2f} ms in {kernels} kernels, idle ~{rates['b8']['idle_percent']:.1f}%; B=1 {ms1:.2f} ms")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the counterfactual explanation: both forced labels on the test batch
+    os.environ["INFERENCE_CONFIG"] = json.dumps(dict(cfg, sampling_steps=IP_EXPLAIN_STEPS))
+    saved = []
+    reset_counts(fa)
+    start = time.perf_counter()
+    out = load_script("explain_torch", "ipmsa").main([], plot_function=numpy_plotter(saved))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    explain = {"seconds_both_labels": seconds, "sampling_steps": IP_EXPLAIN_STEPS, "flash_launches": fa.FLASH_FWD.launches}
+    for label in (True, False):
+        (sample,), (batch,) = out[label]
+        check(sample.shape == (b, 128, 128, 40) and bool(torch.isfinite(sample).all()), f"explain {label} samples")
+        check(float(sample.abs().max()) <= 1.0, f"explain {label} samples outside [-1, 1]")
+        check(bool((np.asarray(batch["prompt"]) == int(label)).all()), f"explain {label}: prompts not forced")
+    diff = (out[True][0][0] - out[False][0][0]).abs().mean().item()
+    print(f"[22 ipmsa explain] explain_torch.main(): active and inactive, {b} test images each re-noised to t=0.5 and sampled back over {IP_EXPLAIN_STEPS} steps, in {seconds:.1f} s together (engines, checkpoint and loader included); flash launches {fa.FLASH_FWD.launches} (9 a tail, one tail on 2B a step, {IP_EXPLAIN_STEPS + 1} steps a label); samples finite in [-1, 1]; mean |active - inactive| {diff:.4f}; {len(saved)} plots")
+    # the sampler runs sampling_steps + 1 denoiser steps (the last to t = 0)
+    check(len(saved) == 2 and fa.FLASH_FWD.launches == 2 * (IP_EXPLAIN_STEPS + 1) * IP_FLASH_A_TAIL,
+          f"explain launches {fa.FLASH_FWD.launches}")
+    return rates, explain, launches
+
+
+def phase_ipmsa_dit(fa, config_cls, tree, workdir):
+    """The IPMSA DiT: ``ipmsa-dit/train_torch.py`` on the tree, then ``inference_torch.py``; 12 launches a forward and a backward."""
+    from diffusion_classifier_tpu_torch.experiments import ipmsa_dit
+
+    cfg = dict(IP_CONFIG, encoder_type="DiT", patch_size=4, num_epochs=1, log_every_steps=1, use_comet=True,
+               sampling_steps=4, **ipmsa_experiment(tree, workdir, "ipmsa-dit"))
+    os.environ["DATA_PATH"] = tree["roots"]["npy"]
+    os.environ["TRAINING_CONFIG"] = json.dumps(cfg)
+    config = config_cls.from_dict(dict(cfg))
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in ipmsa_dit.build_backbone(config).parameters())
+    check(n_params == IP_DIT_PARAMS, f"{n_params} parameters, the IPMSA DiT has {IP_DIT_PARAMS}")
+    forwards = {}
+    hook = count_forwards(forwards)
+    try:
+        reset_counts(fa)
+        start = time.perf_counter()
+        load_script("train_torch", "ipmsa-dit").main([], plot_function=numpy_plotter([]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        fwd, bwd, n_forwards = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches, sum(forwards.values())
+        steps = IP_SPLITS["train"] // config.batch_size
+        with open(os.path.join(config.experiment_path, "track.jsonl")) as f:
+            losses = [e["value"] for e in map(json.loads, f) if e.get("name") == "loss" and e.get("step") is not None]
+        print(f"[23 ipmsa dit] {n_params} parameters; train_torch.main() on the .npy tree (128x128x40 at patch 4: 1024 tokens x 6 x 64): {len(losses)} steps in {seconds:.1f} s; denoiser forwards {forwards}; flash launches fwd {fwd} bwd {bwd}; loss first {losses[0]:.5f} last {losses[-1]:.5f}")
+        check_no_copies(fa, "[23 ipmsa dit train]")
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"losses {losses}")
+        check(bwd == 12 * steps and fwd == 12 * n_forwards, f"launches fwd {fwd} for {n_forwards} forwards, bwd {bwd}")
+        launches = {"train": (fwd, bwd)}
+
+        os.environ["INFERENCE_CONFIG"] = json.dumps(dict(cfg, use_comet=False))
+        forwards.clear()
+        reset_counts(fa)
+        metric_output, preds, batches = load_script("inference_torch", "ipmsa-dit").main([])
+        torch.cuda.synchronize()
+        n_forwards = sum(forwards.values())
+        p = torch.cat(preds)
+        print(f"[23 ipmsa dit classify] inference_torch.main(): {metric_output}; forwards {forwards}, flash launches {fa.FLASH_FWD.launches}")
+        check(fa.FLASH_FWD.launches == 12 * n_forwards > 0 and fa.FLASH_BWD.launches == 0, "classify launches")
+        check(bool(((p == 0) | (p == 1)).all()) and len(metric_output) == 4, f"predictions {p.tolist()}")
+        launches["classify"] = fa.FLASH_FWD.launches
+    finally:
+        hook.remove()
+    check_no_copies(fa, "[23 ipmsa dit classify]")
+    return launches
+
+
+def phase_ipmsa_resnet(fa, config_cls, tree, workdir):
+    """The ResNet-50 baseline: ``ipmsa-classifier/train_torch.py`` on the tree, the step alone, ``inference_torch.py``."""
+    import numpy as np
+
+    from diffusion_classifier_tpu_torch.experiments import ipmsa_classifier
+
+    cfg = dict(IP_CONFIG, variant="resnet50", mixed_precision="no", num_epochs=1, use_comet=True,
+               learning_rate=1e-4, lr_warmup_steps=1, **ipmsa_experiment(tree, workdir, "ipmsa-classifier"))
+    os.environ["DATA_PATH"] = tree["roots"]["npy"]
+    os.environ["TRAINING_CONFIG"] = json.dumps(cfg)
+    config = config_cls.from_dict(dict(cfg))
+    reset_counts(fa)
+    start = time.perf_counter()
+    engine = load_script("train_torch", "ipmsa-classifier").main([])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    with open(os.path.join(config.experiment_path, "track.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    train_loss = [e["value"] for e in events if e.get("name") == "train_loss"]
+    print(f"[24 resnet] ResNet-50 + head, {n_params} parameters, fp32: train_torch.main() on the .npy tree, 1 epoch of {IP_SPLITS['train'] // 8} steps at B=8 in {seconds:.1f} s (decode, eval, checkpoint included); train loss {train_loss}")
+    check(len(train_loss) == 1 and math.isfinite(train_loss[0]), f"train loss {train_loss}")
+    check(os.path.isfile(os.path.join(config.experiment_path, "checkpoints", "classifier_state.pt")), "no classifier checkpoint")
+    check((fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) == (0, 0), "the ResNet launched a flash kernel")
+    check(engine.model.backbone.bn1.running_var.device.type == "cuda", "the ResNet is not on the card")
+    batch = next(iter(ipmsa_classifier.build_data(config).get_train_loader()))
+    engine._build_train_step(total_steps=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: engine.train_step(batch), reps=5, warmup=2)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    busy, _, kernels = profile_table("[24 resnet] one warm step B=8", lambda: engine.train_step(batch))
+    rates = {"step_ms": step_ms, "images_per_s": 8e3 / step_ms, "peak_gb": peak_gb, "device_ms": busy,
+             "kernels": kernels, "idle_percent": 100 * max(0.0, 1 - busy / step_ms)}
+    print(f"[24 resnet] step B=8 at 256x256x10: median {step_ms:.2f} ms -> {rates['images_per_s']:.2f} images/s; peak memory {peak_gb:.3f} GB; device busy {busy:.2f} ms in {kernels} kernels, idle ~{rates['idle_percent']:.1f}%")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["INFERENCE_CONFIG"] = json.dumps(dict(cfg, use_comet=False))
+    val_loss, metric_output = load_script("inference_torch", "ipmsa-classifier").main([])
+    values = [v for d in metric_output for v in d.values()]
+    print(f"[24 resnet] inference_torch.main(): val_loss {val_loss:.4f}, {metric_output}")
+    check(math.isfinite(val_loss) and len(metric_output) == 4 and all(0.0 <= v <= 1.0 for v in values),
+          f"val loss {val_loss}, metrics {metric_output}")
+    rates["val_loss"] = val_loss
+    return rates
+
+
 def loaded_from_jax_package():
     root = os.path.join(REPO, "diffusion_classifier_tpu") + os.sep
     return sorted(
@@ -1602,6 +2227,7 @@ def main() -> int:
     from diffusion_classifier_tpu_torch.experiments import chexpert_dit as chexpert
     from diffusion_classifier_tpu_torch.experiments import chexpert_unet as cx_unet
     from diffusion_classifier_tpu_torch.experiments import cifar10 as cifar
+    from diffusion_classifier_tpu_torch.experiments import ipmsa as ip
     from diffusion_classifier_tpu_torch.ops import flash_attention as fa
     from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
 
@@ -1627,10 +2253,34 @@ def main() -> int:
         )
         trees = phase_trees(workdir)
         loader_rates = phase_loader(trees, workdir)
+        held = {"18 cx-unet": released("[18 cx-unet]")}
         cx_attention = phase_cx_unet_forward(fa, cx_unet, ExperimentConfig)
+        held["18 cx-unet train"] = released("[18 cx-unet train]")
         cx_train_rates, cx_train_launches = phase_cx_unet_train(fa, cx_unet, ExperimentConfig, trees, workdir)
+        held["18 cx-unet classify"] = released("[18 cx-unet classify]")
         cx_classify_rates, cx_ood = phase_cx_unet_classify(fa, cx_unet, ExperimentConfig, trees, workdir)
+        held["19 dit tree"] = released("[19 dit tree]")
         dit_tree = phase_cx_dit_tree(fa, ExperimentConfig, trees, workdir)
+        ip_tree = phase_ipmsa_trees(workdir)
+        ip_loader = phase_ipmsa_loader(ip_tree, workdir)
+        held["22 ipmsa"] = released("[22 ipmsa]")
+        with kernel_shapes(fa) as seen:
+            ip_fwd, ip_bwd, ip_plain = phase_ipmsa_kernels(fa)
+            records["flash_attn_fwd"]["shapes"].append(ip_fwd)
+            records["flash_attn_bwd"]["shapes"].append(ip_bwd)
+            ip_forward = phase_ipmsa_unet_forward(fa, ip, ExperimentConfig)
+            held["22 ipmsa unet train"] = released("[22 ipmsa unet train]")
+            ip_train_rates, ip_train = phase_ipmsa_unet_train(fa, ip, ExperimentConfig, ip_tree, workdir)
+            held["22 ipmsa unet classify"] = released("[22 ipmsa unet classify]")
+            ip_classify_rates, ip_explain, ip_classify = phase_ipmsa_unet_classify(
+                fa, ip, ExperimentConfig, ip_tree, workdir)
+        check_covered(fa, seen, "[22 ipmsa]")
+        held["23 ipmsa dit"] = released("[23 ipmsa dit]")
+        with kernel_shapes(fa) as seen:
+            ip_dit = phase_ipmsa_dit(fa, ExperimentConfig, ip_tree, workdir)
+        check_covered(fa, seen, "[23 ipmsa dit]")
+        held["24 resnet"] = released("[24 resnet]")
+        ip_resnet = phase_ipmsa_resnet(fa, ExperimentConfig, ip_tree, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
@@ -1643,11 +2293,14 @@ def main() -> int:
             "unet_sample": sample_fwd["cifar10"], "dit_sample": sample_fwd["chexpert-dit"],
             "unet_train": unet_train_fwd, "dit_tree_train": dit_tree["train"][0],
             "dit_tree_classify": dit_tree["classify"], "dit_tree_ood": dit_tree["ood"],
-            "chexpert_unet": cx_train_launches[0],
+            "chexpert_unet": cx_train_launches[0], "ipmsa_unet_train": ip_train[0],
+            "ipmsa_unet_classify": ip_classify, "ipmsa_explain": ip_explain["flash_launches"],
+            "ipmsa_dit_train": ip_dit["train"][0], "ipmsa_dit_classify": ip_dit["classify"],
         },
         "flash_attn_bwd": {
             "classify": 0, "train": train_bwd, "unet_train": unet_train_bwd,
             "dit_tree_train": dit_tree["train"][1], "chexpert_unet": cx_train_launches[1],
+            "ipmsa_unet_train": ip_train[1], "ipmsa_dit_train": ip_dit["train"][1],
         },
     }
     print(json.dumps({"paths": {
@@ -1656,6 +2309,12 @@ def main() -> int:
         "chexpert_unet": {"plain_attention_calls_a_forward": cx_attention, "classify": cx_classify_rates,
                           "train_step": cx_train_rates, "ood": cx_ood},
         "chexpert_dit_tree_launches": dit_tree,
+        "ipmsa_loader": ip_loader,
+        "ipmsa_unet": {"plain_route_d96": ip_plain, "a_forward": ip_forward, "train_step": ip_train_rates,
+                       "train_launches": ip_train, "classify": ip_classify_rates, "explain": ip_explain},
+        "ipmsa_dit_launches": ip_dit,
+        "ipmsa_resnet50": ip_resnet,
+        "allocated_gb_before_phase": held,
     }}))
     print(json.dumps({"kernels": [
         {

@@ -7,6 +7,8 @@ same seed gives the JAX module's arrays, and the same train and val batches.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 from .loader import ArrayDataLoader
@@ -44,7 +46,10 @@ def make_synthetic_arrays(
 
 
 class SyntheticDataLoader:
-    """Train/val loader pair: the first ``num_train`` items shuffled by seed, the rest in order."""
+    """Train/val loader pair: the first ``num_train`` items shuffled by seed, the rest in order.
+
+    ``cf_label`` forces every prompt to that class (counterfactual explanation).
+    """
 
     def __init__(
         self,
@@ -56,6 +61,7 @@ class SyntheticDataLoader:
         channels: int = 3,
         classes: int = 10,
         seed: int = 0,
+        cf_label: Optional[int] = None,
     ):
         xs, ys, self.templates = make_synthetic_arrays(
             num_train + num_val,
@@ -64,6 +70,10 @@ class SyntheticDataLoader:
             classes=classes,
             seed=seed,
         )
+        if cf_label is not None:
+            # counterfactual label forcing: every prompt becomes cf_label,
+            # the images keep their true class content
+            ys = np.full_like(ys, int(cf_label))
         self._train = ArrayDataLoader(
             xs[:num_train], ys[:num_train], batch_size, shuffle=True, seed=seed
         )

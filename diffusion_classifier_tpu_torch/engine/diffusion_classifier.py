@@ -37,6 +37,7 @@ import os
 import signal
 import sys
 import time
+import weakref
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -106,11 +107,15 @@ class DiffusionClassifier:
         self._loss_eval = make_loss_fn(
             self.denoiser, self.schedule_fn, cfg_dropout=0.0, **loss_kw
         )
-        apply_fn = lambda z, logsnr, labels: self.state.ema_model(z, logsnr, labels)  # noqa: E731
+        # the closures reach the engine through a weak proxy: with ``self``
+        # each engine would be a reference cycle, whose parameters on the
+        # card only the cyclic collector frees
+        me = weakref.proxy(self)
+        apply_fn = lambda z, logsnr, labels: me.state.ema_model(z, logsnr, labels)  # noqa: E731
         encode_fn = tail_fn = None
         if supports_prefix(backbone):
-            encode_fn = lambda z, logsnr: self.state.ema_model(z, logsnr, None, mode="encode")  # noqa: E731
-            tail_fn = lambda state, labels: self.state.ema_model(  # noqa: E731
+            encode_fn = lambda z, logsnr: me.state.ema_model(z, logsnr, None, mode="encode")  # noqa: E731
+            tail_fn = lambda state, labels: me.state.ema_model(  # noqa: E731
                 None, None, labels, mode="tail", prefix_state=state
             )
         if config.debug_nans:

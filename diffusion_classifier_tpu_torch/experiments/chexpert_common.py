@@ -1,14 +1,11 @@
-"""What the two CheXpert experiments share: the data, the mistakes file and the entry points.
+"""What the two CheXpert experiments share: the data, the mistakes file and the OOD entry point.
 
 Both families (:mod:`.chexpert_dit`, :mod:`.chexpert_unet`) read the same
 data — a CheXpert tree (``train.csv`` and its JPEGs) or the synthetic set —
-and run the same three scripts, which differ only in ``build_engine``:
-
-- :func:`train_main` trains through ``DiffusionClassifier.train_loop`` with
-  the four classification metrics, keeping the best checkpoint by F1;
-- :func:`inference_main` classifies the test split and writes the mistakes
-  file, or samples (CFG) and plots when ``classification`` is false;
-- :func:`ood_main` classifies the OOD set that ``--dataset`` names.
+through :func:`build_data`. Their train and inference scripts run
+:mod:`.common`'s bodies with it and ``make_chexpert_plotter``; inference
+writes the mistakes file (:func:`write_mistakes`). :func:`ood_main`
+classifies the OOD set that ``--dataset`` names.
 
 Each takes ``--device`` (default ``cuda``) and reads its config from the
 environment, as the JAX scripts do.
@@ -16,23 +13,17 @@ environment, as the JAX scripts do.
 
 from __future__ import annotations
 
-import argparse
 import os
-from typing import Callable
 
 import numpy as np
 
 from ..data.chexpert import CheXpertDataLoader
 from ..data.ood import OOD_DATASETS, make_ood_loader
 from ..data.synthetic import SyntheticDataLoader
-from ..engine import DiffusionClassifier
 from ..utils.config import ExperimentConfig
-from ..utils.metrics import F1, Accuracy, Precision, Recall
-from ..utils.plotters import make_chexpert_plotter
+from .common import BuildEngine, metrics, parser
 
-__all__ = ["build_data", "inference_main", "ood_main", "train_main", "write_mistakes"]
-
-BuildEngine = Callable[..., DiffusionClassifier]
+__all__ = ["build_data", "ood_main", "write_mistakes"]
 
 
 def build_data(config: ExperimentConfig):
@@ -84,76 +75,21 @@ def write_mistakes(config: ExperimentConfig, data, predictions) -> str | None:
     return out
 
 
-def _metrics():
-    return [Accuracy("accuracy"), F1("f1"), Precision("precision"), Recall("recall")]
-
-
-def _parser(description: str) -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description=description)
-    parser.add_argument("--device", default="cuda")
-    return parser
-
-
-def train_main(build_engine: BuildEngine, argv=None, plot_function=None, description=None):
-    """Trains for ``TRAINING_CONFIG``'s epochs; returns the engine. ``plot_function=None`` takes the CheXpert plotter."""
-    args = _parser(description).parse_args(argv)
-    config = ExperimentConfig.from_env("TRAINING_CONFIG")
-    if plot_function is None:
-        plot_function = make_chexpert_plotter(config)
-    data = build_data(config)
-    engine = build_engine(config, device=args.device)
-    engine.train_loop(
-        train_dataloader=data.get_train_loader(),
-        val_dataloader=data.get_val_loader(),
-        metrics=_metrics(),
-        checkpoint_metric="f1",
-        plot_function=plot_function,
-    )
-    return engine
-
-
-def inference_main(build_engine: BuildEngine, argv=None, plot_function=None, description=None):
-    """Returns ``(metric_output, predictions, batches)``, or ``(samples, batches)`` when sampling.
-
-    ``plot_function`` defaults to the CheXpert plotter.
-    """
-    args = _parser(description).parse_args(argv)
-    config = ExperimentConfig.from_env("INFERENCE_CONFIG")
-    data = build_data(config)
-    engine = build_engine(config, device=args.device)
-    if not config.classification:
-        return engine.inference(
-            val_dataloader=data.get_test_loader(),
-            plot_function=plot_function or make_chexpert_plotter(config),
-            classification=False,
-            checkpoint_folder=config.checkpoint_folder,
-        )
-    metric_output, val_samples, batches = engine.inference(
-        val_dataloader=data.get_test_loader(),
-        metrics=_metrics(),
-        classification=True,
-        checkpoint_folder=config.checkpoint_folder,
-    )
-    print([{k: round(v, 4) for k, v in d.items()} for d in metric_output])
-    write_mistakes(config, data, val_samples)
-    return metric_output, val_samples, batches
-
-
 def ood_main(build_engine: BuildEngine, argv=None, description=None):
     """Classifies the OOD set ``--dataset`` names (default: the config's ``ood_dataset``).
 
     Returns ``(metric_output, predictions, batches)``.
     """
     config = ExperimentConfig.from_env("INFERENCE_CONFIG")
-    parser = _parser(description)
-    parser.add_argument("--dataset", choices=OOD_DATASETS, default=config.ood_dataset,
-                        help="OOD data set (default: the config's ood_dataset)")
-    args = parser.parse_args(argv)
+    p = parser(description)
+    p.add_argument("--dataset", choices=OOD_DATASETS, default=config.ood_dataset,
+                   help="OOD data set (default: the config's ood_dataset)")
+    args = p.parse_args(argv)
     loader = make_ood_loader(args.dataset, config)
     engine = build_engine(config, device=args.device)
     metric_output, predictions, batches = engine.inference(
         val_dataloader=loader,
-        metrics=_metrics(),
+        metrics=metrics(),
         classification=config.classification,
         checkpoint_folder=config.checkpoint_folder,
     )

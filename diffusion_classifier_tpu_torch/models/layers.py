@@ -84,21 +84,23 @@ class Conv2d(nn.Module):
     """NHWC convolution in ``dtype`` from float32 parameters (flax ``nn.Conv``).
 
     ``weight`` is OIHW (the flax HWIO kernel transposed); padding is
-    symmetric, as flax's integer ``padding``.
+    symmetric, as flax's integer ``padding``; ``bias=False`` is flax's
+    ``use_bias=False``.
     """
 
     def __init__(
         self, in_ch: int, out_ch: int, kernel: int, dtype=torch.float32, *,
-        stride: int = 1, padding: int = 0,
+        stride: int = 1, padding: int = 0, bias: bool = True,
     ):
         super().__init__()
         self.dtype, self.stride, self.padding = dtype, stride, padding
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
-        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.weight.data, self.weight[0].numel(), generator)
-        self.bias.data.zero_()
+        if self.bias is not None:
+            self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_nhwc(x.to(self.dtype), self.weight, self.bias, self.stride, self.padding)

@@ -12,6 +12,11 @@ full copy in ``best_checkpoint/`` when the tracked metric improved):
 - ``experiment_state.json`` — the JAX package's sidecar ``{epoch + 1,
   best_metric, experiment_key}``.
 
+The discriminative classifier (``engine/classifier.py``) has no EMA: its
+folder holds ``classifier_state.pt`` (the model's state dict, BatchNorm's
+running statistics included, and Adam's state) and the same sidecar
+(:func:`save_classifier_checkpoint`, :func:`load_classifier_checkpoint`).
+
 Each file is written under a temporary name and renamed into place, so a
 crash leaves the previous file whole; the sidecar goes last. The JAX
 package's Orbax checkpoints are not readable yet (ROADMAP A8);
@@ -26,11 +31,17 @@ from typing import Optional
 
 import torch
 
-__all__ = ["save_checkpoint", "load_checkpoint"]
+__all__ = [
+    "load_checkpoint",
+    "load_classifier_checkpoint",
+    "save_checkpoint",
+    "save_classifier_checkpoint",
+]
 
 _EMA = "ema_params.pt"
 _TRAIN = "train_state.pt"
 _SIDECAR = "experiment_state.json"
+_CLASSIFIER = "classifier_state.pt"
 
 
 def _cpu(state_dict) -> dict:
@@ -57,22 +68,14 @@ def save_checkpoint(
     Returns the latest checkpoint's folder.
     """
     ema = _cpu(state.ema_model.state_dict())
-    opt = state.opt_state.state_dict() if state.opt_state is not None else None
-    if opt is not None:
-        opt = {**opt, "mu": [t.cpu() for t in opt["mu"]], "nu": [t.cpu() for t in opt["nu"]]}
     train = {
         "params": _cpu(state.model.state_dict()),
-        "opt_state": opt,
+        "opt_state": _opt_cpu(state.opt_state),
         "step": state.step,
         "ema_counter": state.ema_counter,
     }
     # the NEXT epoch, as the JAX package stores it
     sidecar = {"epoch": epoch + 1, "best_metric": best_metric, "experiment_key": experiment_key}
-
-    def write_sidecar(p):
-        with open(p, "w") as f:
-            json.dump(sidecar, f)
-
     folders = [os.path.join(experiment_path, "checkpoints")]
     if best:
         folders.append(os.path.join(experiment_path, "best_checkpoint"))
@@ -80,8 +83,53 @@ def save_checkpoint(
         os.makedirs(directory, exist_ok=True)
         _atomic_write(os.path.join(directory, _TRAIN), lambda p: torch.save(train, p))
         _atomic_write(os.path.join(directory, _EMA), lambda p: torch.save(ema, p))
-        _atomic_write(os.path.join(directory, _SIDECAR), write_sidecar)
+        _write_sidecar(directory, sidecar)
     return folders[0]
+
+
+def _opt_cpu(opt_state) -> Optional[dict]:
+    if opt_state is None:
+        return None
+    opt = opt_state.state_dict()
+    return {**opt, "mu": [t.cpu() for t in opt["mu"]], "nu": [t.cpu() for t in opt["nu"]]}
+
+
+def _write_sidecar(directory: str, sidecar: dict) -> None:
+    def write(p):
+        with open(p, "w") as f:
+            json.dump(sidecar, f)
+
+    _atomic_write(os.path.join(directory, _SIDECAR), write)
+
+
+def _read_sidecar(checkpoint_path: str):
+    path = os.path.join(checkpoint_path, _SIDECAR)
+    if not os.path.exists(path):
+        return 0, None, None
+    with open(path) as f:
+        sidecar = json.load(f)
+    return sidecar.get("epoch", 0), sidecar.get("best_metric"), sidecar.get("experiment_key")
+
+
+def save_classifier_checkpoint(
+    experiment_path: str, model, opt_state, *, epoch: int, experiment_key: Optional[str] = None
+) -> str:
+    """Save the classifier's model (parameters and running statistics) and Adam's state; returns the folder."""
+    payload = {"model": _cpu(model.state_dict()), "opt_state": _opt_cpu(opt_state)}
+    directory = os.path.join(experiment_path, "checkpoints")
+    os.makedirs(directory, exist_ok=True)
+    _atomic_write(os.path.join(directory, _CLASSIFIER), lambda p: torch.save(payload, p))
+    _write_sidecar(directory, {"epoch": epoch + 1, "best_metric": None, "experiment_key": experiment_key})
+    return directory
+
+
+def load_classifier_checkpoint(checkpoint_path: str):
+    """``(model_state_dict, opt_state or None, epoch, best_metric, experiment_key)`` from a folder."""
+    path = os.path.join(checkpoint_path, _CLASSIFIER)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no classifier checkpoint at {path}")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return (payload["model"], payload["opt_state"], *_read_sidecar(checkpoint_path))
 
 
 def load_checkpoint(checkpoint_path: str, *, train_state: bool = True):
@@ -102,12 +150,4 @@ def load_checkpoint(checkpoint_path: str, *, train_state: bool = True):
     train_path = os.path.join(checkpoint_path, _TRAIN)
     if train_state and os.path.isfile(train_path):
         train = torch.load(train_path, map_location="cpu", weights_only=True)
-    epoch, best_metric, experiment_key = 0, None, None
-    sidecar_path = os.path.join(checkpoint_path, _SIDECAR)
-    if os.path.exists(sidecar_path):
-        with open(sidecar_path) as f:
-            sidecar = json.load(f)
-        epoch = sidecar.get("epoch", 0)
-        best_metric = sidecar.get("best_metric")
-        experiment_key = sidecar.get("experiment_key")
-    return ema_params, train, epoch, best_metric, experiment_key
+    return (ema_params, train, *_read_sidecar(checkpoint_path))

@@ -1,7 +1,10 @@
-"""The weight bridge: a flax parameter tree → the port's ``state_dict``.
+"""The weight bridge: a flax variable tree → the port's ``state_dict``.
 
-Input: the JAX package's parameter tree as nested dicts of numpy arrays
-(``{"params": {...}}`` or its inside). Leaf rules:
+Input: the JAX package's variables as nested dicts of numpy arrays:
+``{"params": {...}}`` or its inside, or ``{"params": {...}, "batch_stats":
+{...}}`` for a network with BatchNorm (the ResNet baseline), whose
+``mean``/``var`` leaves become the ``running_mean``/``running_var`` buffers.
+Leaf rules:
 
 - Dense ``kernel [in, out]`` → ``weight [out, in]``;
 - Conv ``kernel [kh, kw, in, out]`` (HWIO) → ``weight [out, in, kh, kw]``
@@ -31,6 +34,7 @@ from torch import nn
 __all__ = ["flax_to_state_dict"]
 
 _LEAF = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict:
@@ -44,15 +48,15 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict:
     return out
 
 
-def _torch_name(path: tuple) -> str:
+def _torch_name(path: tuple, leaves: dict = _LEAF) -> str:
     *mods, leaf = path
     flat = re.fullmatch(r"(\w+)_(kernel|scale|bias)", leaf)
     if flat:  # a resnet block's flat parameter name
         mods, leaf = mods + [flat.group(1)], flat.group(2)
-    if leaf not in _LEAF:
+    if leaf not in leaves:
         raise KeyError(f"unknown flax leaf {'/'.join(path)}")
     mods = [re.sub(r"^block_(\d+)$", r"blocks.\1", m) for m in mods]
-    return ".".join(mods + [_LEAF[leaf]])
+    return ".".join(mods + [leaves[leaf]])
 
 
 def _convert_leaf(leaf: str, value: np.ndarray, target_ndim: int) -> np.ndarray:
@@ -66,12 +70,15 @@ def _convert_leaf(leaf: str, value: np.ndarray, target_ndim: int) -> np.ndarray:
 
 def flax_to_state_dict(flax_params: Mapping, module: nn.Module) -> dict:
     """Convert ``flax_params`` to ``module``'s state dict; raises on missing/extra leaves."""
-    if set(flax_params) == {"params"}:
+    stats = {}
+    if set(flax_params) <= {"params", "batch_stats"} and "params" in flax_params:
+        stats = flax_params.get("batch_stats", {})
         flax_params = flax_params["params"]
+    leaves = [(path, value, _torch_name(path)) for path, value in _flatten(flax_params).items()]
+    leaves += [(path, value, _torch_name(path, _STATS)) for path, value in _flatten(stats).items()]
     expected = module.state_dict()
     out, extra = {}, []
-    for path, value in _flatten(flax_params).items():
-        name = _torch_name(path)
+    for path, value, name in leaves:
         if name not in expected:
             extra.append("/".join(path))
             continue

@@ -19,13 +19,15 @@ REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 if REPO_ROOT not in sys.path:
     sys.path.insert(0, REPO_ROOT)
 
-from diffusion_classifier_tpu_torch.experiments.chexpert_common import train_main  # noqa: E402
-from diffusion_classifier_tpu_torch.experiments.chexpert_dit import build_engine  # noqa: E402
+from diffusion_classifier_tpu_torch.experiments.chexpert_dit import build_data, build_engine  # noqa: E402
+from diffusion_classifier_tpu_torch.experiments.common import train_main  # noqa: E402
+from diffusion_classifier_tpu_torch.utils.plotters import make_chexpert_plotter  # noqa: E402
 
 
 def main(argv=None, plot_function=None):
     """Trains for the config's epochs; returns the engine. ``plot_function=None`` takes the CheXpert plotter."""
-    return train_main(build_engine, argv, plot_function, description=__doc__.splitlines()[0])
+    return train_main(build_engine, build_data, make_chexpert_plotter, argv, plot_function,
+                      description=__doc__.splitlines()[0])
 
 
 if __name__ == "__main__":

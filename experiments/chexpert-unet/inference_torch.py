@@ -22,8 +22,9 @@ REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 if REPO_ROOT not in sys.path:
     sys.path.insert(0, REPO_ROOT)
 
-from diffusion_classifier_tpu_torch.experiments.chexpert_common import inference_main  # noqa: E402
-from diffusion_classifier_tpu_torch.experiments.chexpert_unet import build_engine  # noqa: E402
+from diffusion_classifier_tpu_torch.experiments.chexpert_unet import build_data, build_engine, write_mistakes  # noqa: E402
+from diffusion_classifier_tpu_torch.experiments.common import inference_main  # noqa: E402
+from diffusion_classifier_tpu_torch.utils.plotters import make_chexpert_plotter  # noqa: E402
 
 
 def main(argv=None, plot_function=None):
@@ -31,7 +32,8 @@ def main(argv=None, plot_function=None):
 
     ``plot_function`` defaults to the CheXpert plotter.
     """
-    return inference_main(build_engine, argv, plot_function, description=__doc__.splitlines()[0])
+    return inference_main(build_engine, build_data, make_chexpert_plotter, argv, plot_function,
+                          description=__doc__.splitlines()[0], on_predictions=write_mistakes)
 
 
 if __name__ == "__main__":

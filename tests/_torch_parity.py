@@ -6,11 +6,15 @@ the same random draws (made by JAX, replayed through :class:`JaxDraws` for
 classification and :class:`JaxTrainDraws` for the train step).
 """
 
+import functools
+
 import jax
 import numpy as np
 import torch
 
 from diffusion_classifier_tpu_torch.experiments import chexpert_unet as _port_chexpert_unet
+from diffusion_classifier_tpu_torch.experiments import ipmsa as _port_ipmsa
+from diffusion_classifier_tpu_torch.experiments import ipmsa_dit as _port_ipmsa_dit
 
 
 # __graft_entry__.py's tiny flagship UNet: 8 px, levels (16, 32), the second
@@ -36,6 +40,11 @@ def random_params(init_fn, *args, seed: int = 0):
     biases ~ N(0, 0.1²): nonzero biases, unlike flax's init, so the bias
     paths are compared too.
     """
+    return seeded_params(jax.eval_shape(init_fn, jax.random.PRNGKey(0), *args), seed)
+
+
+def seeded_params(shapes, seed: int = 0):
+    """:func:`random_params`' values for a tree of shapes (``jax.ShapeDtypeStruct`` leaves)."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
@@ -47,7 +56,6 @@ def random_params(init_fn, *args, seed: int = 0):
             return 0.1 * z
         return z / np.sqrt(np.prod(s.shape[:-1]))
 
-    shapes = jax.eval_shape(init_fn, jax.random.PRNGKey(0), *args)
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
@@ -307,3 +315,246 @@ def narrow_chexpert_unet(config):
     with torch.device("meta"):
         full = _PORT_CHEXPERT_UNET(config)
     return UNetCondition2D(dataclasses.replace(full.config, **CHEXPERT_UNET_NARROW), full.dtype)
+
+
+# --- IPMSA: lz4 frames without the lz4 wheel, MRI volume trees ------------------
+
+LZ4_MAGIC = 0x184D2204
+
+
+def lz4_frame(blocks, content_size=None) -> bytes:
+    """An LZ4 frame of ``(payload, compressed)`` blocks, as ``tests/test_lz4.py`` builds them.
+
+    FLG 0x40 (version 1, independent blocks), BD 0x40 (64 KB blocks), an
+    optional 8-byte content size, an unchecked header checksum, each block
+    with its size word (high bit: stored), then the end mark.
+    """
+    import struct
+
+    out = [struct.pack("<I", LZ4_MAGIC), bytes([0x40 | (0x08 if content_size is not None else 0), 0x40])]
+    if content_size is not None:
+        out.append(struct.pack("<Q", content_size))
+    out.append(b"\x00")
+    for payload, compressed in blocks:
+        out.append(struct.pack("<I", len(payload) | (0 if compressed else 0x80000000)))
+        out.append(payload)
+    out.append(struct.pack("<I", 0))
+    return b"".join(out)
+
+
+def lz4_sequence(literals: bytes, match_offset: int, match_len: int) -> bytes:
+    """One compressed-block sequence: up to 14 literals, then a match of 4-18 bytes."""
+    import struct
+
+    assert 4 <= match_len <= 18 and len(literals) < 15
+    return bytes([(len(literals) << 4) | (match_len - 4)]) + literals + struct.pack("<H", match_offset)
+
+
+def lz4_literal_block(data: bytes) -> bytes:
+    """A compressed block that is one sequence of literals and no match (a valid last sequence)."""
+    n = len(data) - 15
+    if n < 0:
+        return bytes([len(data) << 4]) + data
+    return bytes([0xF0]) + b"\xff" * (n // 255) + bytes([n % 255]) + data
+
+
+def npy_lz4_bytes(arr: np.ndarray) -> bytes:
+    """``arr`` as a `.npy.lz4` file: its `.npy` bytes in 64 KB blocks, stored and compressed in turn."""
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    data = buf.getvalue()
+    chunks = [data[i: i + 65536] for i in range(0, len(data), 65536)]
+    blocks = [(lz4_literal_block(c), True) if i % 2 else (c, False) for i, c in enumerate(chunks)]
+    return lz4_frame(blocks, content_size=len(data))
+
+
+# the experiment's own builder, kept before a test monkeypatches it with narrow_ipmsa_unet
+_PORT_IPMSA_UNET = _port_ipmsa.build_backbone
+
+# the volume layout the LORIS transforms expect: [t, D, H, W] per channel,
+# stacked over the index's timepoints. FLAIR, CT2F and the brain MASK at
+# W000/W048/W096; NEWT2 (new lesions) at W048/W096, padded at the front to 3
+# by PadTimepoints; AGE a clinical value
+IPMSA_TIMEPOINTS = ("W000", "W048", "W096")
+
+
+def write_ipmsa_tree(data_root, split_dir, *, counts=(8, 4, 4), shape=(7, 28, 24), lz4=False,
+                     seed=0, blocklist=None):
+    """MRI volumes under ``data_root/<trial>/<patient>/`` and the three split pickles in ``split_dir``.
+
+    ``counts`` samples in the train, val and test splits, ``shape`` (D, H, W)
+    per volume, every other sample active (new T2 lesions in the centre
+    slab at W048 or W096). Index entries name the files without their
+    extension (``.npy``, or ``.npy.lz4`` with ``lz4``), as the trial's index
+    does. With ``blocklist``, also writes a blocklist there whose one line
+    names the first train sample's (trial, patient). Returns the split
+    pickles' paths ``(train, val, test)``.
+    """
+    import os
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    data_root, split_dir = str(data_root), str(split_dir)
+    os.makedirs(split_dir, exist_ok=True)
+    d, h, w = shape
+    zz, yy, xx = np.meshgrid(*(np.linspace(-1, 1, n) for n in shape), indexing="ij")
+    brain = ((zz / 1.2) ** 2 + yy**2 + xx**2 < 0.8).astype(np.float32)
+    template = {
+        "FLAIR": [["MRI_AND_LABEL", "FLAIR", tp] for tp in IPMSA_TIMEPOINTS],
+        "CT2F": [["MRI_AND_LABEL", "CT2F", tp] for tp in IPMSA_TIMEPOINTS],
+        "NEWT2": [["MRI_AND_LABEL", "NEWT2", tp] for tp in IPMSA_TIMEPOINTS[1:]],
+        "MASK": [["MRI_AND_LABEL", "MASK", tp] for tp in IPMSA_TIMEPOINTS],
+        "AGE": [["CLINICAL", "AGE"]],
+    }
+    ext = ".npy.lz4" if lz4 else ".npy"
+    paths, n = [], 0
+    for split, count in zip(("train", "val", "test"), counts):
+        entries = {}
+        for i in range(count):
+            trial, patient = f"trial{n % 3}", f"patient{n:04d}"
+            rel_dir = os.path.join(trial, patient)
+            os.makedirs(os.path.join(data_root, rel_dir), exist_ok=True)
+            entry = {"MRI_AND_LABEL": {}, "CLINICAL": {"AGE": float(30 + n)}}
+            active = n % 2 == 0
+            for key in ("FLAIR", "CT2F", "NEWT2", "MASK"):
+                entry["MRI_AND_LABEL"][key] = {}
+                for t, tp in enumerate(IPMSA_TIMEPOINTS):
+                    if key == "NEWT2" and t == 0:
+                        continue
+                    if key == "FLAIR":
+                        vol = (rng.random(shape) * 40 + 60 * (1 + zz)) * brain
+                    elif key == "MASK":
+                        vol = brain
+                    else:
+                        vol = ((rng.random(shape) > 0.97) * brain).astype(np.float32)
+                        if key == "NEWT2":
+                            vol[:] = 0.0
+                            if active and t == 1 + n % 4 // 2:
+                                vol[d // 2, h // 2 - 1: h // 2 + 1, w // 2: w // 2 + 2] = 1.0
+                    rel = os.path.join(rel_dir, f"{key.lower()}_{tp}")
+                    vol = vol.astype(np.float32)
+                    with open(os.path.join(data_root, rel + ext), "wb") as f:
+                        if lz4:
+                            f.write(npy_lz4_bytes(vol))
+                        else:
+                            np.save(f, vol)
+                    entry["MRI_AND_LABEL"][key][tp] = rel
+            entries[f"{split}{i:03d}"] = entry
+            n += 1
+        path = os.path.join(split_dir, f"{split}_dataset_filtered.pkl")
+        with open(path, "wb") as f:
+            pickle.dump({"dataset_dict": entries, "item_template": template}, f)
+        paths.append(path)
+    if blocklist is not None:
+        first = os.path.join(data_root, "trial0", "patient0000", "flair_W000" + ext)
+        parts = first.split("/")  # (trial, patient) are absolute-path parts 3 and 4
+        with open(blocklist, "w") as f:
+            f.write(f"x/{parts[3]}/{parts[4]}/rest\n")
+    return tuple(paths)
+
+
+def jax_experiment_common(experiment: str):
+    """``experiments/<experiment>/common.py`` of the JAX package, loaded by path."""
+    import importlib.util
+    import os
+
+    folder = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "experiments", experiment)
+    spec = importlib.util.spec_from_file_location(f"jax_{experiment.replace('-', '_')}_common",
+                                                  os.path.join(folder, "common.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# --- the IPMSA UNet at a narrow width ---------------------------------------------
+
+# the experiment's five levels and block types, narrow and one resnet (and
+# transformer) a level for the CPU's time, with one head a level so that
+# level 3 runs D=64 (the flash kernels' plain version on the CPU) and level 4
+# and the mid block D=96 (the route outside the gate), as the full width's 8
+# heads do; 8 groups as the CheXpert UNet's narrow width
+IPMSA_UNET_NARROW = dict(
+    block_out_channels=(32, 32, 32, 64, 96), layers_per_block=1, encoder_hid_dim=16,
+    cross_attention_dim=16, norm_num_groups=8, attention_head_dim=1,
+)
+
+
+def narrow_ipmsa_unet(config):
+    """The port IPMSA experiment's backbone for ``config``, at :data:`IPMSA_UNET_NARROW`'s widths."""
+    import dataclasses
+
+    from diffusion_classifier_tpu_torch.models.unet import UNetCondition2D
+
+    with torch.device("meta"):
+        full = _PORT_IPMSA_UNET(config)
+    return UNetCondition2D(dataclasses.replace(full.config, **IPMSA_UNET_NARROW), full.dtype)
+
+
+# the IPMSA DiT narrowed for the CPU: 2 layers of 2 heads x 32 (the
+# experiment's: 12 layers of 6 x 64)
+IPMSA_DIT_NARROW = dict(num_attention_heads=2, attention_head_dim=32, num_layers=2)
+_PORT_IPMSA_DIT = _port_ipmsa_dit.build_backbone
+
+
+def narrow_ipmsa_dit(config):
+    """The port IPMSA DiT experiment's backbone for ``config``, at :data:`IPMSA_DIT_NARROW`."""
+    import dataclasses
+
+    from diffusion_classifier_tpu_torch.models.dit import DiT
+
+    with torch.device("meta"):
+        full = _PORT_IPMSA_DIT(config)
+    return DiT(dataclasses.replace(full.config, **IPMSA_DIT_NARROW), full.dtype)
+
+
+# the IPMSA experiments' data: 5 slices of FLAIR and CT2F (10 channels) at 256 px through the Haar DWT
+IPMSA_CONFIG = dict(image_size=256, image_channels=10, slices=5, wavelet_transform=True, classes=2,
+                    encoder_type="nn", mixed_precision="no")
+# the narrow net's data: 32 px, 3 slices: 16 x 16 x 24 after the DWT
+IPMSA_NARROW_DATA = dict(image_size=32, image_channels=6, slices=3)
+
+
+@functools.lru_cache(maxsize=1)
+def narrow_ipmsa_pair():
+    """``(jax_denoiser, params, (x, logsnr, labels))`` at :data:`IPMSA_UNET_NARROW` on 16 x 16 x 24 inputs.
+
+    The JAX experiment's backbone at the narrow widths, a 16-wide class
+    embedder, seeded weights (``random_params``); labels include the null
+    token. Built once a process (tracing the flax init takes seconds): the
+    callers only read it.
+    """
+    import dataclasses
+
+    from diffusion_classifier_tpu.engine.denoiser import Denoiser as JaxDenoiser
+    from diffusion_classifier_tpu.models.encoders import ClassEmbedder as JaxClassEmbedder
+    from diffusion_classifier_tpu.models.unet import UNetCondition2D as JaxUNet
+    from diffusion_classifier_tpu.utils.config import ExperimentConfig as JaxExperimentConfig
+
+    c = IPMSA_CONFIG["classes"]
+    net = jax_experiment_common("ipmsa").build_backbone(
+        JaxExperimentConfig(**dict(IPMSA_CONFIG, **IPMSA_NARROW_DATA)))
+    jden = JaxDenoiser(
+        backbone=JaxUNet(dataclasses.replace(net.config, **IPMSA_UNET_NARROW)),
+        encoder=JaxClassEmbedder(c, 16),
+    )
+    rng = np.random.default_rng(31)
+    x = rng.uniform(-1, 1, (4, 16, 16, 24)).astype(np.float32)
+    lg = rng.uniform(-5, 5, 4).astype(np.float32)
+    y = np.array([0, 1, c, 1], np.int32)
+    return jden, random_params(jden.init, x, lg, y, seed=32), (x, lg, y)
+
+
+def narrow_ipmsa_port(params, dtype=torch.float32):
+    """The port's narrow IPMSA denoiser in ``dtype`` with the flax ``params`` bridged."""
+    from diffusion_classifier_tpu_torch.engine.denoiser import Denoiser
+    from diffusion_classifier_tpu_torch.models.encoders import ClassEmbedder
+    from diffusion_classifier_tpu_torch.models.unet import UNetCondition2D
+    from diffusion_classifier_tpu_torch.utils import convert
+    from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
+
+    cfg = narrow_ipmsa_unet(ExperimentConfig(**dict(IPMSA_CONFIG, **IPMSA_NARROW_DATA))).config
+    model = Denoiser(UNetCondition2D(cfg, dtype), ClassEmbedder(IPMSA_CONFIG["classes"], 16, dtype))
+    model.load_state_dict(convert.flax_to_state_dict(params, model))
+    return model.to(dtype)

@@ -207,7 +207,11 @@ def _port_steps(params, batches, keys, dtype):
 # a full-size update: in this network the port's own float32 steps lie up to
 # 5.2e-6 from its float64 steps (2 of 1.9 M elements beyond 2e-6). Such an
 # element is held within twice that measured float32 error instead, and no
-# more than 4 elements may need it.
+# more than 4 elements may need it. Since the port's attention outside the
+# kernels' gate (D=12 here) computes as jax.nn.dot_product_attention does,
+# its fp32 steps sit closer to its float64 steps than JAX's do at one
+# element (to_k of the level-2 attention: the port 1.6e-7 from float64, JAX
+# 3.1e-6): the float32 error allowed is the larger of the two packages'.
 def test_two_narrow_train_steps_match_jax(narrow):
     jden, params, _ = narrow
     rng = np.random.default_rng(25)
@@ -242,7 +246,8 @@ def test_two_narrow_train_steps_match_jax(narrow):
         for name, value in got_model.state_dict().items():
             got, ref = value.numpy(), want_sd[name].numpy()
             err, tol = np.abs(got - ref), 1e-5 * np.abs(ref) + 2e-6
-            fp32_err = np.abs(got - exact_sd[name].numpy())
+            exact_ref = exact_sd[name].numpy()
+            fp32_err = np.maximum(np.abs(got - exact_ref), np.abs(ref - exact_ref))
             over = err > tol
             beyond += int(over.sum())
             assert np.all(err[over] <= 2 * fp32_err[over]), (name, err[over], fp32_err[over])

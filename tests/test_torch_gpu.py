@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from diffusion_classifier_tpu_torch.ops import flash_attention as fa
-from diffusion_classifier_tpu_torch.ops.attention import attention
+from diffusion_classifier_tpu_torch.ops.attention import attention, dot_product_attention
 
 pytestmark = pytest.mark.gpu
 
@@ -41,6 +41,7 @@ BWD_CASES = [
     *BF16_RAGGED,
     *((shape, dtype) for shape in UNET_BWD for dtype in (torch.bfloat16, torch.float32)),
     ((3, 9, 2, 64), torch.bfloat16),
+    ((2, 256, 8, 64), torch.bfloat16),  # the IPMSA UNet's level 3: 16 x 16 tokens, 8 heads x 64
 ]
 
 
@@ -68,6 +69,7 @@ def _strided_qkv(shape, dtype, gen):
         ((1, 65, 1, 128), torch.float32),
         ((2, 256, 4, 32), torch.bfloat16),
         ((64, 64, 6, 64), torch.bfloat16),  # the DiT's OOD classify at 64 px
+        ((2, 256, 8, 64), torch.bfloat16),  # the IPMSA UNet's level 3
         *BF16_RAGGED,
     ],
 )
@@ -253,12 +255,35 @@ def test_backward_wrapper_raises_on_bad_input(cuda):
 # --- the CheXpert UNet: 8 heads x 96 at 1024 tokens, outside the kernels' gate
 
 
-def test_d96_attention_takes_the_plain_route_on_the_card(cuda):
-    q, k, v = (torch.randn((2, 1024, 8, 96), generator=cuda, device="cuda").to(torch.bfloat16) for _ in range(3))
+@pytest.mark.parametrize("shape", [(2, 1024, 8, 96), (8, 64, 8, 96)])  # CheXpert UNet; IPMSA UNet level 4
+def test_d96_attention_takes_the_plain_route_on_the_card(cuda, shape):
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda").to(torch.bfloat16) for _ in range(3))
     before = fa.FLASH_FWD.launches
     got = attention(q, k, v, backend="auto")
     assert fa.FLASH_FWD.launches == before
-    torch.testing.assert_close(got, fa.flash_attention_reference(q, k, v), rtol=0, atol=0)
+    torch.testing.assert_close(got, dot_product_attention(q, k, v), rtol=0, atol=0)
+    # against the kernels' yardstick: the bf16 noise floor (one bf16 ulp of an O(1) output)
+    torch.testing.assert_close(got, fa.flash_attention_reference(q, k, v), **TOL[torch.bfloat16])
+
+
+def test_resnet_batchnorm_statistics_on_the_card_match_the_cpu(cuda):
+    from diffusion_classifier_tpu_torch.models.resnet import ResNet2D
+
+    model = ResNet2D("resnet18", in_channels=10)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn((4, 64, 64, 10), generator=torch.Generator().manual_seed(1))
+    gpu = ResNet2D("resnet18", in_channels=10)
+    gpu.load_state_dict(model.state_dict())
+    gpu = gpu.cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    for _ in range(2):
+        want = model(x, train=True)
+        got = gpu(x.cuda(), train=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for name, value in model.state_dict().items():
+        if "running_" in name:
+            torch.testing.assert_close(gpu.state_dict()[name].cpu(), value, rtol=1e-5, atol=1e-6,
+                                       msg=lambda m: f"{name}: {m}")
 
 
 def test_chexpert_unet_trains_on_the_card_without_the_kernels(cuda):

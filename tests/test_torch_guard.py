@@ -58,8 +58,10 @@ def test_port_experiment_scripts_import_without_jax_or_the_jax_package():
         capture_output=True, text=True, timeout=300, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    # train, inference and OOD of the CheXpert DiT and UNet; train and inference of CIFAR-10
-    assert int(proc.stdout.split()[-1]) == 8
+    # train, inference and OOD of the CheXpert DiT and UNet; train and inference of CIFAR-10;
+    # train, inference and explain of the IPMSA UNet; train and inference of the IPMSA DiT and
+    # of the ResNet baseline
+    assert int(proc.stdout.split()[-1]) == 15
 
 
 def test_no_port_source_loads_files_by_path():
@@ -68,3 +70,28 @@ def test_no_port_source_loads_files_by_path():
             if name.endswith((".py", ".cu")):
                 with open(os.path.join(folder, name)) as f:
                     assert "load_reference_module" not in f.read(), name
+
+
+_LZ4 = """
+import ctypes, os, sys
+from diffusion_classifier_tpu_torch.utils import lz4io
+frame = bytes.fromhex("04224d184040") + b"\\x00" + (5 | 0x80000000).to_bytes(4, "little") + b"hello" + bytes(4)
+assert lz4io.decompress(frame) == b"hello"
+with open("/proc/self/maps") as f:
+    maps = f.read()
+native = os.path.join({repo!r}, "native", "liblz4dec.so")
+assert native not in maps, "the committed native/liblz4dec.so was loaded"
+assert lz4io.library_path() in maps
+assert lz4io.library_path().startswith(os.path.join({repo!r}, "build") + os.sep)
+assert "jax" not in sys.modules and not any(
+    os.path.abspath(getattr(m, "__file__", None) or os.sep).startswith(os.path.join({repo!r}, "diffusion_classifier_tpu") + os.sep)
+    for m in list(sys.modules.values()))
+"""
+
+
+def test_port_lz4_decoder_is_its_own_build():
+    proc = subprocess.run(
+        [sys.executable, "-c", _LZ4.format(repo=REPO)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]

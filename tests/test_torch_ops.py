@@ -3,6 +3,8 @@
 The plain forward and backward are held to the JAX Pallas ``flash_attention``
 and its custom VJP, which run in interpret mode on the CPU. The CUDA kernels
 themselves run only on the card: their tests are in ``test_torch_gpu.py``.
+The dispatcher's route outside the kernels' gate (and ``"xla"``),
+``dot_product_attention``, is held to ``jax.nn.dot_product_attention``.
 """
 
 import os
@@ -18,7 +20,7 @@ import torch
 from diffusion_classifier_tpu.ops.flash_attention import flash_attention as jax_flash
 from diffusion_classifier_tpu.ops.wavelet import haar_dwt2 as jax_dwt
 from diffusion_classifier_tpu_torch.ops import flash_attention as fa
-from diffusion_classifier_tpu_torch.ops.attention import attention
+from diffusion_classifier_tpu_torch.ops.attention import attention, dot_product_attention
 from diffusion_classifier_tpu_torch.ops.wavelet import haar_dwt2, haar_idwt2
 
 torch.set_num_threads(1)
@@ -112,8 +114,49 @@ def test_dispatcher_sends_cpu_tensors_to_plain_version(backend):
     q, k, v = (torch.from_numpy(a) for a in _qkv((1, 200, 2, 32), seed=1))
     before = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
     out = attention(q, k, v, backend=backend)
-    torch.testing.assert_close(out, fa.flash_attention_reference(q, k, v), rtol=0, atol=0)
+    # "xla" is JAX's jax.nn.dot_product_attention route in both packages
+    plain = dot_product_attention if backend == "xla" else fa.flash_attention_reference
+    torch.testing.assert_close(out, plain(q, k, v), rtol=0, atol=0)
     assert (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches) == before
+
+
+def _bf16_row_ulp(out: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at the scale of each output row: the largest |value| of a query's head vector."""
+    top = np.maximum(np.abs(out).max(axis=-1, keepdims=True), 2.0**-126)
+    return 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+# The route outside the kernels' gate (D=96 in the CheXpert and IPMSA UNets,
+# D=40 for an odd width) against jax.nn.dot_product_attention on the CPU.
+# bf16: one bf16 ulp at the scale of the output row. The two packages round
+# the normalised probabilities to bf16 after fp32 softmaxes whose exp differs
+# in the last fp32 bit, so a probability can land one bf16 ulp apart, which
+# moves a near-zero output by that much of the row's scale; measured: at most
+# 0.125, 1.0 and 0.25 of it, 4.9e-4 absolute. fp32: atol 1e-6 (measured
+# ≤ 4.1e-7: summation order). The old route (flash_attention_reference:
+# fp32 products, pre-scaled q, exp2, divide after P·V) misses the bf16 bound
+# (1.25 and 1.5 row ulps at the first two shapes).
+@pytest.mark.parametrize("shape", [(2, 64, 2, 96), (2, 1024, 1, 96), (1, 65, 3, 40)])
+def test_plain_route_matches_jax_dot_product_attention(shape):
+    q, k, v = _qkv(shape, seed=0)
+    old_misses = []
+    for dtype, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        want = np.asarray(jax.nn.dot_product_attention(
+            *(jnp.asarray(a).astype(jdt) for a in (q, k, v))).astype(jnp.float32))
+        tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+        got = dot_product_attention(tq, tk, tv)
+        assert got.dtype == dtype and got.shape == shape
+        assert torch.equal(attention(tq, tk, tv, backend="auto"), got)  # D ∉ {32, 64, 128}
+        err = np.abs(got.float().numpy() - want)
+        old = np.abs(fa.flash_attention_reference(tq, tk, tv).float().numpy() - want)
+        if dtype == torch.float32:
+            assert err.max() <= 1e-6, err.max()
+        else:
+            ulp = _bf16_row_ulp(want)
+            assert np.all(err <= ulp), (err / ulp).max()
+            old_misses.append(bool(np.any(old > ulp)))
+    if shape[1] == 64 or shape[1] == 1024:
+        assert old_misses == [True]  # the fault the route repairs
 
 
 def test_dispatcher_rejects_unknown_backend():
