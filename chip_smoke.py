@@ -130,10 +130,44 @@ explanation, the IPMSA DiT, the ResNet-50 baseline). Phases:
     launches a forward and a backward, every shape held by phases 3 and 6;
 24. the ResNet-50 baseline: ``ipmsa-classifier/train_torch.py`` on the
     tree, the step alone at B=8 (ms, images/s, peak memory, idle share),
-    ``inference_torch.py`` with its metrics in range.
+    ``inference_torch.py`` with its metrics in range;
+25. DDP on the card: the CheXpert DiT-b4 at full width, 3 train steps at
+    the global B=16 and a classify of one global batch through ``evaluate``
+    (Accuracy and F1 synced), first in this process without a group, then
+    on two ranks that share the card over gloo (NCCL refuses two ranks on
+    one device), 8 rows each, from the same seeds: every rank's losses
+    within 1e-3 (bf16) of the one-process run's, the global predictions and
+    the synced counters equal, 12 + 12 launches a step a rank, every shape
+    held by phases 3 and 6; step ms, peak memory a rank and idle share;
+26. FSDP: the same at ``param_sharding='fsdp'`` at world 1 on NCCL (the
+    fixed rule ``MP_WORLD``: FSDP2 over gloo with CUDA tensors killed both
+    ranks with SIGSEGV on this card), then DDP at world 1 on NCCL, whose
+    step against the one-process step is the wrapper's cost; peak memory a
+    rank beside DDP's;
+27. tensor parallel: the flagship UNet at full width in fp32 on a data 1 ×
+    model 2 mesh over gloo (4 of 8 heads a rank), 3 train steps at B=64 and
+    a classify (4 evaluations × 10 classes), held to the one-process run
+    (losses rtol 1e-4, predictions and counters equal), the attention and
+    GEGLU weights sliced in half, the kernels at the head-split shapes
+    (``TP_CASES``, held by phases 3 and 6);
+28. the entry points under ``torchrun --nproc_per_node=1`` (NCCL, world
+    1): ``chexpert-dit/train_torch.py`` on phase 16's tree at
+    ``param_sharding='fsdp'`` (12 backward launches a step), its checkpoint
+    files read back, ``inference_torch.py`` on them (the mistakes file), and
+    ``ipmsa-classifier/train_torch.py`` (ResNet-50) at ``'replicated'``;
+29. preemption: two ranks (gloo) train the DiT-b4 through ``train_loop``;
+    SIGTERM to both after step 3; both save at one agreed step (only rank 0
+    writes) and exit 143; two fresh ranks resume and finish the epoch, and
+    the interrupted and resumed losses are those of an uninterrupted run
+    within 1e-3.
+
+Phases 25-27 and 29 run their ranks as ``chip_smoke.py --worker`` and
+phase 28 its entry points as ``chip_smoke.py --entry`` under ``torchrun``;
+each reports its launches, which the kernels' line sums by path. Two ranks
+on one card measure the code path and its overhead, not multi-GPU scaling.
 
 Each path's launch and copy counts are set to 0 just before it runs and read
-just after. Before each of phases 18-24 the card must hold under 0.5 GB (what
+just after. Before each of phases 18-29 the card must hold under 0.5 GB (what
 an earlier phase leaves would inflate the phase's peak memory). Any failed
 check raises and exits non-zero. The second-to-last line
 is the kernels' JSON record; the last line is
@@ -195,6 +229,10 @@ IP_TAIL_SHAPE = (16, 256, 8, 64)
 IP_B1_SHAPE = (2, 256, 8, 64)
 IP_B64_SHAPE = (64, 256, 8, 64)
 IP_DIT_SHAPE = (8, 1024, 6, 64)
+# the CIFAR UNet under tensor parallelism on a model axis of 2 (phase 27):
+# 4 of its 8 heads a rank, at the train and classify batch of 64
+TP_CASES = [(shape, dtype) for shape in ((64, 64, 4, 32), (64, 16, 4, 64))
+            for dtype in (torch.float32, torch.bfloat16)]
 KERNEL_CASES = [
     (DIT_SHAPE, torch.bfloat16),
     (DIT_OOD_SHAPE, torch.bfloat16),
@@ -204,6 +242,7 @@ KERNEL_CASES = [
     (IP_DIT_SHAPE, torch.bfloat16),
     ((2, 1024, 6, 64), torch.float32),
     ((1, 1024, 3, 128), torch.bfloat16),
+    *TP_CASES,
     *RAGGED_CASES,
 ]
 BWD_CASES = [
@@ -212,6 +251,7 @@ BWD_CASES = [
     (IP_DIT_SHAPE, torch.bfloat16),
     ((2, 1024, 6, 64), torch.float32),
     ((1, 512, 3, 128), torch.bfloat16),
+    *TP_CASES,
     *RAGGED_CASES,
 ]
 # repetitions of each turn when a kernel is timed against its library call,
@@ -2209,6 +2249,472 @@ def phase_ipmsa_resnet(fa, config_cls, tree, workdir):
     return rates
 
 
+# --- multi-process (phases 25-29): torch.distributed on the one card
+
+# Which world each mode runs at on this one card is a fixed rule, from a probe
+# on it (torch 2.11.0+cu128): NCCL refuses two ranks on one device, so the
+# 2-rank modes use gloo with CUDA tensors. DDP's all-reduce and the tensor-
+# parallel collectives run so; FSDP2 over gloo with CUDA tensors killed both
+# ranks with SIGSEGV in its first step, so FSDP runs at world 1 on NCCL.
+MP_WORLD = {"ddp": (2, "gloo"), "fsdp": (1, "nccl"), "tp": (2, "gloo")}
+# the CheXpert DiT-b4 at full width (INFERENCE_CONFIG: 256 px, DWT, 1024
+# tokens, bf16) at the global B=16, 8 rows a rank at world 2; the default
+# warmup (500 steps) keeps 3 steps' learning rate near 0, so the compared
+# runs take the same weights into classify
+MP_DIT_CONFIG = dict(INFERENCE_CONFIG, evaluation_batches=0, experiment_dir="mp-dit")
+# the flagship UNet at full width, B=64, in fp32: a bf16 row-parallel layer
+# rounds each rank's partial product before the sum, which moves near-tied
+# class errors; fp32 holds the tensor-parallel run to the one-process run
+MP_UNET_CONFIG = dict(CIFAR_CONFIG, mixed_precision="no", experiment_dir="mp-unet")
+MP_STEPS = 3  # compared train steps
+MP_TIMED = 3  # warm steps timed after them
+TP_SHAPES = sorted({shape for shape, _ in TP_CASES})
+# phase 29: one epoch of the synthetic set's 256 images at B=16 (16 steps);
+# SIGTERM after rank 0 logs step 3
+PREEMPT_CONFIG = dict(INFERENCE_CONFIG, num_epochs=1, log_every_steps=1, experiment_dir="mp-preempt")
+PREEMPT_AFTER = 3
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank, world, port):
+    return dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                WORLD_SIZE=str(world), LOCAL_RANK=str(rank), PYTHONUNBUFFERED="1")
+
+
+def start_ranks(kind, world, workdir):
+    """``world`` processes of ``chip_smoke.py --worker kind workdir``, each logging to ``rank<r>.log``."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", kind, workdir],
+            env=rank_env(rank, world, port), cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+        ))
+        log.close()
+    return procs
+
+
+def stop_ranks(procs, timeout):
+    """Waits for every rank until the deadline, then kills what is left; returns the exit codes."""
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs]
+
+
+def log_tail(workdir, rank, n=3000):
+    with open(os.path.join(workdir, f"rank{rank}.log"), errors="replace") as f:
+        return f.read()[-n:]
+
+
+def run_ranks(kind, tag, world, backend, workdir, inputs, timeout=600):
+    """Runs ``kind`` on ``world`` ranks over ``backend``; fails unless every rank exits 0; returns their outputs."""
+    wd = _mkdir(os.path.join(workdir, f"ranks-{tag}"))
+    torch.save(dict(inputs, backend=backend), os.path.join(wd, "inputs.pt"))
+    start = time.perf_counter()
+    rcs = stop_ranks(start_ranks(kind, world, wd), timeout)
+    for rank, rc in enumerate(rcs):
+        check(rc == 0, f"{tag}: rank {rank} exited {rc}:\n{log_tail(wd, rank)}")
+    print(f"{tag} {world} rank(s) over {backend} on one card: {time.perf_counter() - start:.1f} s, processes included")
+    return [torch.load(os.path.join(wd, f"out{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def mp_inputs(size, channels, classes, batch, seed):
+    """``MP_STEPS`` global train batches and one val batch, from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def draw():
+        return (rng.uniform(-1, 1, (batch, size, size, channels)).astype(np.float32),
+                rng.integers(0, classes, batch).astype(np.int32))
+
+    return {"batches": [draw() for _ in range(MP_STEPS)], "val": draw()}
+
+
+def mp_run(kind, config, inputs, device, mesh=None):
+    """The compared run of phases 25-27: ``MP_STEPS`` train steps and a classify through ``evaluate``, then the timed steps.
+
+    Each rank feeds its rows of the global batches. Launches and kernel
+    shapes are counted from 0 over the compared run.
+    """
+    from diffusion_classifier_tpu_torch.data.loader import ArrayDataLoader
+    from diffusion_classifier_tpu_torch.engine import DiffusionClassifier
+    from diffusion_classifier_tpu_torch.experiments import chexpert_dit, cifar10
+    from diffusion_classifier_tpu_torch.ops import flash_attention as fa
+    from diffusion_classifier_tpu_torch.utils.metrics import F1, Accuracy
+
+    family = chexpert_dit if kind == "dit" else cifar10
+    engine = DiffusionClassifier(family.build_backbone(config), config, device=device, mesh=mesh)
+    engine.init_params()
+    engine._build_train_state(MP_STEPS + MP_TIMED + 4)
+    pl = engine.state.placement
+
+    def local(x, y):
+        b = x.shape[0] // pl.data_count
+        return {"images": x[pl.data_index * b:(pl.data_index + 1) * b],
+                "prompt": y[pl.data_index * b:(pl.data_index + 1) * b]}
+
+    out = {"placement": {"mode": pl.mode, "fsdp": pl.fsdp, "ddp": pl._ddp is not None,
+                         "tp_slices": len(pl.tp_slices), "data": (pl.data_index, pl.data_count)}}
+    reset_counts(fa)
+    with kernel_shapes(fa) as seen:
+        out["losses"] = [float(engine.train_step(local(x, y))) for x, y in inputs["batches"]]
+        torch.cuda.synchronize()
+        out["train_launches"] = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
+        out["copies"] = (fa.FLASH_FWD.copies, fa.FLASH_BWD.copies)
+        reset_counts(fa)
+        vx, vy = inputs["val"]
+        metrics = [Accuracy("accuracy"), F1("f1")]
+        preds, _, _ = engine.evaluate(ArrayDataLoader(vx, vy, vx.shape[0], shuffle=False),
+                                      metrics=metrics, classification=True)
+        torch.cuda.synchronize()
+        out["classify_launches"] = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
+    out["shapes"] = {name: sorted(s, key=str) for name, s in seen.items()}
+    for m in metrics:
+        m.sync_across_processes(engine._data_group)
+    out["preds"] = [p.numpy() for p in preds]
+    out["counters"] = {m.name: dict(m.counters) for m in metrics}
+    batch = local(*inputs["batches"][0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["step_ms"] = cuda_ms(lambda: engine.train_step(batch), reps=MP_TIMED, warmup=1)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    busy, _, kernels = profile_table(f"[{kind} {pl.mode}] one warm step", lambda: engine.train_step(batch))
+    out["device_ms"], out["kernels"] = busy, kernels
+    out["idle_percent"] = 100 * max(0.0, 1 - busy / out["step_ms"])
+    if pl.tp_slices:
+        attn = engine.denoiser.backbone.mid_attn_0.blocks[0]
+        out["local_to_q"] = tuple(attn.attn1.to_q.weight.shape)
+        out["local_proj_in"] = tuple(attn.ff.proj_in.weight.shape)
+    del engine, pl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_to_one_process(tag, outs, ref, rtol):
+    """Every rank's losses within ``rtol`` of the one-process run's; the global predictions and synced counters equal."""
+    for rank, out in enumerate(outs):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], ref["losses"]))
+        print(f"{tag} rank {rank}: losses {[round(v, 6) for v in out['losses']]} vs one process {[round(v, 6) for v in ref['losses']]} (max rel {rel:.2e}, limit {rtol}); counters {out['counters']}; launches train {out['train_launches']} classify {out['classify_launches']}; step {out['step_ms']:.2f} ms, peak {out['peak_gb']:.3f} GB, idle ~{out['idle_percent']:.1f}%")
+        check(rel <= rtol, f"{tag} rank {rank}: losses {out['losses']} vs {ref['losses']}")
+        check(out["counters"] == ref["counters"], f"{tag} rank {rank}: counters {out['counters']} vs {ref['counters']}")
+        check(out["copies"] == (0, 0), f"{tag} rank {rank}: alignment copies {out['copies']}")
+    data_count = outs[0]["placement"]["data"][1]
+    # the ranks of one model group hold the same rows: each such group's
+    # data ranks, in order, hold the global batch
+    model_count = len(outs) // data_count
+    for m in range(model_count):
+        group = outs[m::model_count]
+        for i, want in enumerate(ref["preds"]):
+            got = [int(v) for r in group for v in r["preds"][i]]
+            check(got == [int(v) for v in want], f"{tag}: predictions {got} vs one process {want.tolist()}")
+
+
+def covered(fa, tag, outs):
+    seen = {name: set() for name in outs[0]["shapes"]}
+    for out in outs:
+        for name, shapes in out["shapes"].items():
+            seen[name] |= {(tuple(s), d) for s, d in shapes}
+    check_covered(fa, seen, tag)
+
+
+def mp_summary(outs, ref=None):
+    keys = ("step_ms", "peak_gb", "device_ms", "kernels", "idle_percent")
+    summary = {"per_rank": [{k: out[k] for k in keys} for out in outs]}
+    if ref is not None:
+        summary["one_process"] = {k: ref[k] for k in keys}
+    return summary
+
+
+def launches_of(outs):
+    return (sum(o["train_launches"][0] + o["classify_launches"][0] for o in outs),
+            sum(o["train_launches"][1] for o in outs))
+
+
+def phase_mp_dit(fa, config_cls, workdir):
+    """Phases 25-26: the DiT-b4 under DDP (world 2, gloo) and FSDP and DDP at world 1 (NCCL), held to one process."""
+    import numpy as np
+
+    config = config_cls.from_dict(dict(MP_DIT_CONFIG, project_root=workdir))
+    inputs = mp_inputs(256, 3, 2, 16, seed=40)
+    ref = mp_run("dit", config, inputs, "cuda")
+    print(f"[25 ddp] one process (no group): losses {ref['losses']}, predictions {np.concatenate(ref['preds']).tolist()}, counters {ref['counters']}; step B=16 {ref['step_ms']:.2f} ms, peak {ref['peak_gb']:.3f} GB, idle ~{ref['idle_percent']:.1f}%")
+    released("[25 ddp]")
+    world, backend = MP_WORLD["ddp"]
+    ddp = run_ranks("dit", "[25 ddp]", world, backend, workdir, dict(
+        inputs, configs=[dict(MP_DIT_CONFIG, project_root=workdir, param_sharding="replicated")]))
+    ddp = [o[0] for o in ddp]
+    check(all(o["placement"]["ddp"] and not o["placement"]["fsdp"] for o in ddp), f"placements {[o['placement'] for o in ddp]}")
+    check(all(o["train_launches"] == (12 * MP_STEPS, 12 * MP_STEPS) for o in ddp), "DDP train launches")
+    hold_to_one_process("[25 ddp]", ddp, ref, rtol=1e-3)
+    covered(fa, "[25 ddp]", ddp)
+    released("[26 fsdp]")
+    world, backend = MP_WORLD["fsdp"]
+    # FSDP (phase 26), then DDP at the same world 1 on NCCL: the wrapper's cost against the one-process step
+    fsdp, ddp1 = run_ranks("dit", "[26 fsdp]", world, backend, workdir, dict(
+        inputs, configs=[dict(MP_DIT_CONFIG, project_root=workdir, param_sharding=mode)
+                         for mode in ("fsdp", "replicated")]))[0]
+    check(fsdp["placement"]["fsdp"] and not fsdp["placement"]["ddp"], f"placement {fsdp['placement']}")
+    check(ddp1["placement"]["ddp"], f"placement {ddp1['placement']}")
+    hold_to_one_process("[26 fsdp]", [fsdp], ref, rtol=1e-3)
+    hold_to_one_process("[26 ddp world 1]", [ddp1], ref, rtol=1e-3)
+    covered(fa, "[26 fsdp]", [fsdp, ddp1])
+    print(f"[26 fsdp] peak memory a rank: FSDP at world 1 {fsdp['peak_gb']:.3f} GB, DDP at world 2 {[round(o['peak_gb'], 3) for o in ddp]} GB, one process {ref['peak_gb']:.3f} GB")
+    print(f"[26 ddp wrapper] DiT-b4 B=16 step at world 1 on NCCL: DDP {ddp1['step_ms']:.2f} ms vs no group {ref['step_ms']:.2f} ms ({100 * (ddp1['step_ms'] / ref['step_ms'] - 1):+.1f}%)")
+    return {
+        "ddp_world2_gloo": mp_summary(ddp, ref), "fsdp_world1_nccl": mp_summary([fsdp]),
+        "ddp_world1_nccl": mp_summary([ddp1]),
+        "launches": {"ddp": launches_of(ddp), "fsdp": launches_of([fsdp]), "ddp_world1": launches_of([ddp1])},
+    }
+
+
+def phase_mp_tp(fa, config_cls, workdir):
+    """Phase 27: the flagship UNet at data 1 × model 2 (tensor parallel), held to one process."""
+    config = config_cls.from_dict(dict(MP_UNET_CONFIG, project_root=workdir))
+    inputs = mp_inputs(32, 3, 10, 64, seed=41)
+    ref = mp_run("unet", config, inputs, "cuda")
+    released("[27 tp]")
+    world, backend = MP_WORLD["tp"]
+    outs = run_ranks("unet", "[27 tp]", world, backend, workdir, dict(
+        inputs, mesh=(1, 2), configs=[dict(MP_UNET_CONFIG, project_root=workdir, param_sharding="tp")]))
+    outs = [o[0] for o in outs]
+    for out in outs:
+        print(f"[27 tp] placement {out['placement']}: mid transformer to_q {out['local_to_q']}, GEGLU proj_in {out['local_proj_in']} a rank")
+        check(out["placement"]["tp_slices"] > 0 and out["local_to_q"] == (256, 512) and out["local_proj_in"] == (2048, 512),
+              f"tensor-parallel slices {out['placement']} {out['local_to_q']} {out['local_proj_in']}")
+    hold_to_one_process("[27 tp]", outs, ref, rtol=1e-4)
+    covered(fa, "[27 tp]", outs)
+    seen = {tuple(s) for out in outs for s, _ in out["shapes"][fa.FLASH_FWD.name]}
+    check(set(TP_SHAPES) <= seen, f"[27 tp]: the forward ran at {sorted(seen)}, not at the head-split shapes {TP_SHAPES}")
+    return {"tp_unet_world2_gloo": mp_summary(outs, ref), "launches": {"tp": launches_of(outs)}}
+
+
+def entry_main(experiment, script, outfile):
+    """``chip_smoke.py --entry``: runs an entry point's ``main`` in this (torchrun) process and records its launches."""
+    sys.path.insert(0, REPO)
+    from diffusion_classifier_tpu_torch.ops import flash_attention as fa
+
+    reset_counts(fa)
+    saved = []
+    module = load_script(script, experiment)
+    kwargs = {"plot_function": numpy_plotter(saved)} if experiment != "ipmsa-classifier" else {}
+    result = module.main([], **kwargs)
+    torch.cuda.synchronize()
+    import torch.distributed as dist
+
+    out = {"launches": (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches),
+           "world": dist.get_world_size() if dist.is_initialized() else 0,
+           "backend": dist.get_backend() if dist.is_initialized() else None}
+    if script == "inference_torch" and experiment != "ipmsa-classifier":
+        out["metrics"] = result[0]
+    torch.save(out, outfile)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def torchrun(tag, experiment, script, workdir, env, timeout=600):
+    outfile = os.path.join(workdir, f"{experiment}-{script}.pt")
+    log = os.path.join(workdir, f"{experiment}-{script}.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1", f"--master_port={free_port()}",
+           os.path.abspath(__file__), "--entry", experiment, script, outfile]
+    start = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, env=dict(os.environ, **env), cwd=REPO, stdout=f, stderr=subprocess.STDOUT)
+    rc = stop_ranks([proc], timeout)[0]
+    with open(log, errors="replace") as f:
+        text = f.read()
+    check(rc == 0, f"{tag}: torchrun {experiment}/{script}.py exited {rc}:\n{text[-3000:]}")
+    out = torch.load(outfile, weights_only=False)
+    print(f"{tag} torchrun --nproc_per_node=1 experiments/{experiment}/{script}.py: {time.perf_counter() - start:.1f} s, world {out['world']} on {out['backend']}, flash launches {out['launches']}")
+    check(out["world"] == 1 and out["backend"] == "nccl", f"{tag}: not a NCCL group at world 1: {out}")
+    return out
+
+
+def read_back(tag, folder, names):
+    """Loads every checkpoint file of ``folder``; fails on a missing file or a non-finite tensor."""
+    for name in names:
+        path = os.path.join(folder, name)
+        check(os.path.isfile(path), f"{tag}: no {path}")
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        tensors = []
+
+        def walk(x):
+            if isinstance(x, torch.Tensor):
+                tensors.append(x)
+            elif isinstance(x, dict):
+                for v in x.values():
+                    walk(v)
+            elif isinstance(x, (list, tuple)):
+                for v in x:
+                    walk(v)
+
+        walk(payload)
+        check(tensors and all(bool(torch.isfinite(t.float()).all()) for t in tensors if t.is_floating_point()),
+              f"{tag}: {name} holds no tensor or a non-finite one")
+        print(f"{tag} read back {name}: {len(tensors)} tensors, {sum(t.numel() for t in tensors)} elements, finite")
+
+
+def phase_mp_entry(fa, config_cls, trees, ip_tree, workdir):
+    """Phase 28: the entry points under ``torchrun`` at world 1 on NCCL: the CheXpert DiT at FSDP, the ResNet-50 at DDP."""
+    cfg = dict(CX_CONFIG, encoder_type="DiT", patch_size=4, data_path=trees["chexpert"], num_epochs=1,
+               sampling_steps=4, project_root=workdir, experiment_dir="mp-entry-dit", param_sharding="fsdp")
+    config = config_cls.from_dict(dict(cfg))
+    launches = {}
+    out = torchrun("[28 entry]", "chexpert-dit", "train_torch", workdir, {"TRAINING_CONFIG": json.dumps(cfg)})
+    steps = 192 // config.batch_size
+    check(out["launches"][1] == 12 * steps, f"[28 entry] {out['launches'][1]} backward launches for {steps} steps")
+    launches["dit_train"] = out["launches"]
+    read_back("[28 entry]", os.path.join(config.experiment_path, "checkpoints"),
+              ("ema_params.pt", "train_state.pt"))
+    out = torchrun("[28 entry]", "chexpert-dit", "inference_torch", workdir, {"INFERENCE_CONFIG": json.dumps(cfg)})
+    check(out["launches"][0] > 0 and out["launches"][1] == 0, f"[28 entry] classify launches {out['launches']}")
+    check(len(out["metrics"]) == 4, f"[28 entry] metrics {out['metrics']}")
+    check(os.path.isfile(os.path.join(config.experiment_path, "mistakes-ddpm-chexpert.txt")), "[28 entry] no mistakes file")
+    launches["dit_classify"] = out["launches"]
+    rcfg = dict(IP_CONFIG, variant="resnet50", mixed_precision="no", num_epochs=1, learning_rate=1e-4,
+                lr_warmup_steps=1, param_sharding="replicated",
+                **ipmsa_experiment(ip_tree, workdir, "mp-entry-resnet"))
+    out = torchrun("[28 entry]", "ipmsa-classifier", "train_torch", workdir,
+                   {"TRAINING_CONFIG": json.dumps(rcfg), "DATA_PATH": ip_tree["roots"]["npy"]})
+    check(out["launches"] == (0, 0), f"[28 entry] the ResNet launched {out['launches']}")
+    read_back("[28 entry]", os.path.join(workdir, "mp-entry-resnet", "checkpoints"), ("classifier_state.pt",))
+    return launches
+
+
+def preempt_worker(inputs, rank):
+    """Phase 29's rank: ``train_loop`` on the synthetic set, its losses and saves logged; the resume also runs the uninterrupted epoch."""
+    from diffusion_classifier_tpu_torch.experiments import chexpert_dit
+    from diffusion_classifier_tpu_torch.ops import flash_attention as fa
+    from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
+
+    log = {"losses": [], "saved_at": [], "writes": []}
+    real_save = torch.save
+
+    def counted(obj, f, *a, **k):
+        log["writes"].append(str(f))
+        return real_save(obj, f, *a, **k)
+
+    def run(cfg, record):
+        config = ExperimentConfig.from_dict(dict(cfg))
+        engine = chexpert_dit.build_engine(config, device="cuda:0")
+        step, save = engine.train_step, engine.save_checkpoint
+
+        def train_step(batch, **kw):
+            loss = step(batch, **kw)
+            record["losses"].append(float(loss))
+            return loss
+
+        def save_checkpoint(*a, **k):
+            record["saved_at"].append(engine.state.step)
+            return save(*a, **k)
+
+        engine.train_step, engine.save_checkpoint = train_step, save_checkpoint
+        data = chexpert_dit.build_data(config)
+        engine.train_loop(data.get_train_loader(), data.get_val_loader())
+        return engine
+
+    reset_counts(fa)
+    torch.save = counted
+    try:
+        run(inputs["config"], log)
+        if inputs["config"].get("resume"):
+            full = {"losses": [], "saved_at": [], "writes": []}
+            run(dict(inputs["config"], resume=False, experiment_dir="mp-preempt-full"), full)
+            log["full_losses"] = full["losses"]
+    finally:
+        torch.save = real_save
+        log["launches"] = (fa.FLASH_FWD.launches, fa.FLASH_BWD.launches)
+        torch.save(log, os.path.join(inputs["dir"], f"out{rank}.pt"))
+
+
+def phase_mp_preempt(fa, workdir):
+    """Phase 29: SIGTERM to both ranks mid-epoch; both save at one step, the resume continues to the uninterrupted run."""
+    import signal
+
+    world, backend = MP_WORLD["ddp"]
+    wd = _mkdir(os.path.join(workdir, "ranks-[29 preempt]"))
+    cfg = dict(PREEMPT_CONFIG, project_root=workdir)
+    torch.save({"config": cfg, "dir": wd, "backend": backend}, os.path.join(wd, "inputs.pt"))
+    procs = start_ranks("preempt", world, wd)
+    try:
+        deadline, seen = time.time() + 300, False
+        while time.time() < deadline and not seen and all(p.poll() is None for p in procs):
+            time.sleep(0.2)
+            seen = f"step {PREEMPT_AFTER}/" in log_tail(wd, 0, 100000)
+        check(seen, f"[29 preempt] training never logged step {PREEMPT_AFTER}:\n{log_tail(wd, 0)}")
+        for p in procs:  # the orchestrator signals every rank
+            p.send_signal(signal.SIGTERM)
+        rcs = stop_ranks(procs, 300)
+    finally:
+        stop_ranks(procs, 1)
+    check(rcs == [128 + signal.SIGTERM] * world, f"[29 preempt] exit codes {rcs}:\n{log_tail(wd, 0)}\n{log_tail(wd, 1)}")
+    logs = [torch.load(os.path.join(wd, f"out{r}.pt"), weights_only=False) for r in range(world)]
+    saved = logs[0]["saved_at"]
+    steps = 256 // cfg["batch_size"]
+    print(f"[29 preempt] SIGTERM after step {PREEMPT_AFTER}: saved at steps {[log['saved_at'] for log in logs]}; checkpoint files written by rank {[len(log['writes']) for log in logs]}")
+    check(len(saved) == 1 and all(log["saved_at"] == saved for log in logs), "[29 preempt] the ranks saved at different steps")
+    check(PREEMPT_AFTER <= saved[0] < steps, f"[29 preempt] saved at step {saved[0]}")
+    check(logs[0]["writes"] and not any(log["writes"] for log in logs[1:]), "[29 preempt] a rank other than 0 wrote")
+    check("Preemption notice: saving checkpoint at synced step" in log_tail(wd, 0, 100000), "[29 preempt] no preemption notice")
+    torch.save({"config": dict(cfg, resume=True), "dir": wd, "backend": backend}, os.path.join(wd, "inputs.pt"))
+    start = time.perf_counter()
+    rcs = stop_ranks(start_ranks("preempt", world, wd), 600)
+    check(rcs == [0] * world, f"[29 preempt] resume exit codes {rcs}:\n{log_tail(wd, 0)}")
+    resumed = [torch.load(os.path.join(wd, f"out{r}.pt"), weights_only=False) for r in range(world)]
+    for log, res in zip(logs, resumed):
+        got, want = log["losses"] + res["losses"], res["full_losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"[29 preempt] resumed {len(res['losses'])} steps after step {saved[0]} in {time.perf_counter() - start:.1f} s (the uninterrupted epoch included): interrupted + resumed losses vs uninterrupted, max rel {rel:.2e} (limit 1e-3)")
+        check(len(got) == len(want) == steps, f"[29 preempt] {len(got)} steps, uninterrupted {len(want)}")
+        check(all(map(math.isfinite, got)) and rel <= 1e-3, f"[29 preempt] losses {got} vs {want}")
+    return {"saved_at": saved[0], "launches": (sum(r["launches"][0] for r in logs + resumed),
+                                               sum(r["launches"][1] for r in logs + resumed))}
+
+
+def worker_main(kind, workdir):
+    """``chip_smoke.py --worker kind workdir``: one rank of phases 25-27 and 29."""
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from diffusion_classifier_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
+
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    device = init_distributed(device="cuda:0", backend=inputs["backend"])
+    rank = dist.get_rank()
+    if kind == "preempt":
+        preempt_worker(inputs, rank)
+    else:
+        outs = []
+        for cfg in inputs["configs"]:
+            mesh = make_mesh(*inputs["mesh"], device_type="cuda") if inputs.get("mesh") else None
+            outs.append(mp_run(kind, ExperimentConfig.from_dict(dict(cfg)), inputs, device, mesh))
+        torch.save(outs, os.path.join(workdir, f"out{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
 def loaded_from_jax_package():
     root = os.path.join(REPO, "diffusion_classifier_tpu") + os.sep
     return sorted(
@@ -2281,6 +2787,14 @@ def main() -> int:
         check_covered(fa, seen, "[23 ipmsa dit]")
         held["24 resnet"] = released("[24 resnet]")
         ip_resnet = phase_ipmsa_resnet(fa, ExperimentConfig, ip_tree, workdir)
+        held["25 ddp"] = released("[25 ddp] before the one-process run")
+        mp_dit = phase_mp_dit(fa, ExperimentConfig, workdir)
+        held["27 tp"] = released("[27 tp] before the one-process run")
+        mp_tp = phase_mp_tp(fa, ExperimentConfig, workdir)
+        held["28 entry"] = released("[28 entry]")
+        mp_entry = phase_mp_entry(fa, ExperimentConfig, trees, ip_tree, workdir)
+        held["29 preempt"] = released("[29 preempt]")
+        mp_preempt = phase_mp_preempt(fa, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
@@ -2296,11 +2810,19 @@ def main() -> int:
             "chexpert_unet": cx_train_launches[0], "ipmsa_unet_train": ip_train[0],
             "ipmsa_unet_classify": ip_classify, "ipmsa_explain": ip_explain["flash_launches"],
             "ipmsa_dit_train": ip_dit["train"][0], "ipmsa_dit_classify": ip_dit["classify"],
+            "ddp_world2": mp_dit["launches"]["ddp"][0], "fsdp_world1": mp_dit["launches"]["fsdp"][0],
+            "ddp_world1": mp_dit["launches"]["ddp_world1"][0], "tp_unet_world2": mp_tp["launches"]["tp"][0],
+            "torchrun_dit_train": mp_entry["dit_train"][0], "torchrun_dit_classify": mp_entry["dit_classify"][0],
+            "preempt_world2": mp_preempt["launches"][0],
         },
         "flash_attn_bwd": {
             "classify": 0, "train": train_bwd, "unet_train": unet_train_bwd,
             "dit_tree_train": dit_tree["train"][1], "chexpert_unet": cx_train_launches[1],
             "ipmsa_unet_train": ip_train[1], "ipmsa_dit_train": ip_dit["train"][1],
+            "ddp_world2": mp_dit["launches"]["ddp"][1], "fsdp_world1": mp_dit["launches"]["fsdp"][1],
+            "ddp_world1": mp_dit["launches"]["ddp_world1"][1], "tp_unet_world2": mp_tp["launches"]["tp"][1],
+            "torchrun_dit_train": mp_entry["dit_train"][1], "torchrun_dit_classify": mp_entry["dit_classify"][1],
+            "preempt_world2": mp_preempt["launches"][1],
         },
     }
     print(json.dumps({"paths": {
@@ -2314,6 +2836,12 @@ def main() -> int:
                        "train_launches": ip_train, "classify": ip_classify_rates, "explain": ip_explain},
         "ipmsa_dit_launches": ip_dit,
         "ipmsa_resnet50": ip_resnet,
+        "multi_process": {
+            "worlds": {mode: {"world": w, "backend": b} for mode, (w, b) in MP_WORLD.items()},
+            **{k: v for k, v in mp_dit.items() if k != "launches"},
+            **{k: v for k, v in mp_tp.items() if k != "launches"},
+            "preempt_saved_at_step": mp_preempt["saved_at"],
+        },
         "allocated_gb_before_phase": held,
     }}))
     print(json.dumps({"kernels": [
@@ -2340,6 +2868,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--worker":  # one rank of phases 25-27, 29
+        sys.exit(worker_main(*sys.argv[2:4]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--entry":  # phase 28, under torchrun
+        sys.exit(entry_main(*sys.argv[2:5]))
     start = time.perf_counter()
     code = main()
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s", file=sys.stderr)

@@ -16,8 +16,9 @@ gives the JAX loader's batches in the same order.
 
 Under several processes ``batch_size`` is the global batch: every process
 computes the same shuffle and takes its contiguous row slice of each batch.
-The rank and world size are passed in, or, when neither is, read from
-``torch.distributed`` if it is initialised (else one process).
+The rank and world size are passed in, or, when neither is, read from the
+data axis of the mesh, or from ``torch.distributed`` if it is initialised
+(else one process).
 """
 
 from __future__ import annotations
@@ -100,18 +101,17 @@ def _process_slice(
 ) -> slice:
     """This process's contiguous row slice of a global batch.
 
-    With neither argument, the rank and world size of an initialised
+    With neither argument, this rank's place on the data axis
+    (``parallel.mesh.data_position``: the ranks of one tensor-parallel group
+    share rows), else the rank and world size of an initialised
     ``torch.distributed`` group, else (0, 1).
     """
     if (process_index is None) != (process_count is None):
         raise ValueError("pass both process_index and process_count, or neither")
     if process_count is None:
-        import torch.distributed as dist
+        from ..parallel.mesh import data_position
 
-        if dist.is_available() and dist.is_initialized():
-            process_index, process_count = dist.get_rank(), dist.get_world_size()
-        else:
-            process_index, process_count = 0, 1
+        process_index, process_count = data_position()
     if batch_size % process_count:
         raise ValueError(
             f"global batch {batch_size} not divisible by {process_count} processes"

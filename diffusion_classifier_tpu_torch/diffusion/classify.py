@@ -19,6 +19,12 @@ Same protocol and the same megabatch schedule as the JAX module:
   labels' ``(G, B, cc)`` order) and only the conditioned tail runs on the
   ``[G·B·cc]`` megabatch.
 
+Under several data ranks (``data_rows=(index, count)``) ``x`` holds this
+rank's contiguous rows of the global batch. The draws and the group size
+``G`` are the global batch's, as in the JAX program over a sharded batch:
+each rank draws the global shapes and keeps its rows, so the same seed
+predicts the same classes at any world size.
+
 The JAX scans become Python loops, so ``scan_unroll`` (an XLA schedule knob)
 is accepted and ignored. The random draws come from a :class:`Draws`
 provider — :class:`TorchDraws` over a ``torch.Generator`` on the device, or,
@@ -118,6 +124,7 @@ def make_classifier(
     encode_fn: Callable = None,
     tail_fn: Callable = None,
     trace: bool = False,
+    data_rows: tuple = (0, 1),
 ):
     """Build ``classify(x, labels, draws) -> predicted class ids [B]``.
 
@@ -127,9 +134,11 @@ def make_classifier(
     fast mode. ``class_chunk`` changes the schedule, never the
     predictions (0 = all classes at once, -1 = 1 at batch ≥ 16). With
     ``trace=True`` it also returns, per stage, ``{"mean", "cand"}``.
-    ``scan_unroll`` is ignored (see the module docstring).
+    ``scan_unroll`` is ignored (see the module docstring). ``data_rows``
+    is ``(index, count)`` on the data axis.
     """
     del scan_unroll
+    data_index, data_count = data_rows
     prefix = encode_fn is not None and tail_fn is not None
     ev = (0,) + tuple(evaluation_per_stage)
     keep = tuple(n_keep_per_stage)
@@ -149,8 +158,9 @@ def make_classifier(
                     f"evaluation count {ev[i + 1] - ev[i]}; use 0 for auto grouping"
                 )
 
-    def _score_stage(x, cand, err_sum, count, draws, stage, n_evals, group, identity):
+    def _score_stage(x, cand, err_sum, count, draws, stage, n_evals, group, identity, rows):
         b, k = x.shape[0], cand.shape[1]
+        gb = b * data_count
         n_groups = n_evals // group
         chunk = class_chunk if class_chunk >= 0 else (1 if b >= 16 else 0)
         cc = chunk if chunk and k % chunk == 0 else k
@@ -161,8 +171,10 @@ def make_classifier(
 
         for gi in range(n_groups):
             t, eps = draws.noise(
-                stage, n_stages, gi, n_groups, (group, b), (group,) + tuple(x.shape)
+                stage, n_stages, gi, n_groups, (group, gb), (group, gb) + tuple(x.shape[1:])
             )
+            if rows is not None:
+                t, eps = t[:, rows], eps[:, rows]
             t = t.to(x.device, torch.float32)
             eps = eps.to(x.device, x.dtype)
             logsnr_t = schedule_fn(t)  # [G, B]
@@ -217,13 +229,15 @@ def make_classifier(
     @torch.no_grad()
     def classify(x: torch.Tensor, labels: torch.Tensor, draws: Draws):
         b, dev = x.shape[0], x.device
+        gb = b * data_count
+        rows = slice(data_index * b, (data_index + 1) * b) if data_count > 1 else None
         if fast:
             labels = labels.to(dev, torch.long)
             # incorrect classes of row b in ascending order: i + (i >= label)
             i = torch.arange(num_classes - 1, device=dev)[None, :]
             incorrect = i + (i >= labels[:, None]).long()
-            sel = draws.fast_select((b, n_fast_classes - 1), num_classes - 1)
-            sel = sel.to(dev, torch.long)
+            sel = draws.fast_select((gb, n_fast_classes - 1), num_classes - 1)
+            sel = (sel if rows is None else sel[rows]).to(dev, torch.long)
             cand = torch.cat(
                 [labels[:, None], torch.gather(incorrect, 1, sel)], dim=1
             )
@@ -236,11 +250,11 @@ def make_classifier(
         for i in range(n_stages):
             n_evals = ev[i + 1] - ev[i]
             group = eval_group or auto_eval_group(
-                n_evals, b, cand.shape[1], img_elems=math.prod(x.shape[1:])
+                n_evals, gb, cand.shape[1], img_elems=math.prod(x.shape[1:])
             )
             identity = (not fast) and i == 0 and cand.shape[1] == num_classes
             err_sum, count = _score_stage(
-                x, cand, err_sum, count, draws, i, n_evals, group, identity
+                x, cand, err_sum, count, draws, i, n_evals, group, identity, rows
             )
             mean = torch.where(count == ev[i + 1], err_sum / ev[i + 1], math.inf)
             # lax.top_k(-mean) order: lowest mean first, ties to the lower id

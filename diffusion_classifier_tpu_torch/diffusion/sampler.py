@@ -13,6 +13,10 @@ The same trajectory as the JAX sampler:
   from ONE forward on a 2B batch; with a prefix split (UNet), the prefix
   runs once on B and only the conditioned tail on 2B.
 
+Under several data ranks (``data_rows=(index, count)``) ``x`` holds this
+rank's rows; every draw is made at the global batch's shape and the rank
+keeps its rows, so a seed samples the same images at any world size.
+
 The JAX ``lax.scan`` is a Python loop here; the draws come from a
 :class:`SampleDraws` provider — :class:`TorchSampleDraws` over a
 ``torch.Generator`` on the device, or, in the tests, one that replays the
@@ -65,6 +69,7 @@ def make_sampler(
     sampling_steps: int,
     encode_fn: Callable = None,
     tail_fn: Callable = None,
+    data_rows: tuple = (0, 1),
 ):
     """Build ``sample(x, labels, draws, from_t=1.0) -> x̂`` in ``[-1, 1]``.
 
@@ -74,6 +79,10 @@ def make_sampler(
     ``from_t < 1``, the image to re-noise.
     """
     prefix = encode_fn is not None and tail_fn is not None
+    data_index, data_count = data_rows
+
+    def local(noise: torch.Tensor, b: int) -> torch.Tensor:
+        return noise if data_count == 1 else noise[data_index * b : (data_index + 1) * b]
 
     @torch.no_grad()
     def sample(x: torch.Tensor, labels: torch.Tensor, draws: SampleDraws, from_t: float = 1.0):
@@ -82,7 +91,8 @@ def make_sampler(
         steps = float(from_t) * (1.0 - i / sampling_steps)
         logsnrs = schedule_fn(steps)  # [S + 1] float32
 
-        eps = draws.init(tuple(x.shape)).to(dev, x.dtype)
+        gshape = (b * data_count,) + tuple(x.shape[1:])
+        eps = local(draws.init(gshape), b).to(dev, x.dtype)
         if from_t == 1.0:
             z = eps
         else:
@@ -105,7 +115,7 @@ def make_sampler(
             mu, var = ddpm_sampler_step(
                 z, pred, u_pred, logsnrs[s], logsnrs[s + 1], cfg_w=cfg_w, pred_param=pred_param
             )
-            noise = draws.step(s, tuple(mu.shape)).to(dev, mu.dtype)
+            noise = local(draws.step(s, gshape), b).to(dev, mu.dtype)
             z = mu + noise * torch.sqrt(var)
 
         # the final step: the posterior mean of the last pair, no noise

@@ -22,6 +22,15 @@ softmax cross-entropy on integer labels (the batch mean), one process:
   the mean cross-entropy and the metrics over the val loader.
 
 The device is explicit (``device=``, default ``"cuda"``).
+
+Several processes: as the diffusion engine, ``mesh`` (by default every rank
+on the data axis once a process group is up) and ``param_sharding`` place
+the model (DDP or FSDP2; ``parallel.sharding``). BatchNorm normalises with
+the global batch's statistics (``models/resnet.py``), so the running
+averages stay equal on every rank and equal to one process's; the step
+returns the global batch's loss, evaluation sums its loss and the metrics'
+counters over the data group, and rank 0 alone prints and writes the
+checkpoint, gathered whole.
 """
 
 from __future__ import annotations
@@ -32,10 +41,13 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import Dense, reset_parameters
+from ..parallel.mesh import is_main_process, make_mesh
+from ..parallel.sharding import Placement, shard_params
 from ..utils.checkpoint import load_classifier_checkpoint, save_classifier_checkpoint
 from ..utils.tracking import make_tracker
 from .diffusion_classifier import _first_batch
@@ -59,13 +71,25 @@ class BackboneWithHead(nn.Module):
 class Classifier:
     """Supervised classifier engine over ``{"images", "prompt"}`` batches."""
 
-    def __init__(self, backbone: nn.Module, config, *, device="cuda"):
+    def __init__(self, backbone: nn.Module, config, *, device="cuda", mesh=None):
         self.config = config.validate()
         self.device = torch.device(device)
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh(device_type=self.device.type)
+        self.mesh = mesh
         self.model = BackboneWithHead(backbone, config.classes)
+        self.placement = Placement(self.model)
         self._initialised = False
         self._tx = None
         self._opt_state = None
+
+    @property
+    def is_main_process(self) -> bool:
+        return is_main_process()
+
+    def _log(self, *args) -> None:
+        if self.is_main_process:
+            print(*args)
 
     # ------------------------------------------------------------------ utils
     def _images(self, x) -> torch.Tensor:
@@ -91,10 +115,11 @@ class Classifier:
             load_pretrained_resnet(
                 self.model.backbone, self.config.pretrained_path, in_channels=in_channels
             )
-            print(f"Loaded pretrained backbone: {self.config.pretrained_path}")
+            self._log(f"Loaded pretrained backbone: {self.config.pretrained_path}")
         self.model.to(self.device)
         self._initialised = True
-        print(f"Parameter count: {sum(p.numel() for p in self.model.parameters())}")
+        self._log(f"Parameter count: {sum(p.numel() for p in self.model.parameters())}")
+        self.placement = shard_params(self.model, self.mesh, self.config.param_sharding)
 
     def _build_train_step(self, total_steps: int) -> None:
         cfg = self.config
@@ -102,7 +127,8 @@ class Classifier:
             cfg.learning_rate, cfg.lr_warmup_steps, total_steps,
             state_dtype=cfg.optimizer_state_dtype,
         )
-        self._opt_state = self._tx.init(self.model.parameters())
+        self.placement.wrap_for_training()
+        self._opt_state = self._tx.init(Placement.local(p) for p in self.model.parameters())
 
     # ------------------------------------------------------------- public API
     def train_step(self, batch) -> torch.Tensor:
@@ -110,16 +136,21 @@ class Classifier:
         if self._tx is None:
             raise RuntimeError("build the train step first (train_loop does)")
         x, labels = self._images(batch["images"]), self._labels(batch["prompt"])
+        pl = self.placement
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
-        loss = F.cross_entropy(self.model(x, train=True), labels)
+        loss = F.cross_entropy(pl.forward_module(x, train=True), labels)
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        self._tx.update(grads, self._opt_state, params)
+        local = [pl.local(p) for p in params]
+        grads = [
+            pl.local(p.grad) if p.grad is not None else torch.zeros_like(q)
+            for p, q in zip(params, local)
+        ]
+        self._tx.update(grads, self._opt_state, local, global_norm=pl.grad_norm)
         for p in params:
             p.grad = None
-        return loss.detach()
+        return pl.mean_over_data(loss.detach())
 
     @torch.no_grad()
     def classify(self, x) -> torch.Tensor:
@@ -137,7 +168,11 @@ class Classifier:
 
     @torch.no_grad()
     def evaluate(self, val_dataloader, stop_idx: Optional[int] = None, metrics=None):
-        """``(mean cross-entropy, metrics)``; ``stop_idx`` runs ``stop_idx + 1`` batches."""
+        """``(mean cross-entropy, metrics)``; ``stop_idx`` runs ``stop_idx + 1`` batches.
+
+        The mean is over the data group's rows; the metrics count this
+        rank's rows until they are synced.
+        """
         total_loss, total = 0.0, 0
         for idx, batch in enumerate(val_dataloader):
             logits = self.model(self._images(batch["images"]), train=False)
@@ -150,6 +185,12 @@ class Classifier:
                 metric.update((preds, batch))
             if stop_idx is not None and idx == stop_idx:
                 break
+        if self.placement.data_count > 1:
+            sums = torch.tensor([total_loss, total], dtype=torch.float64)
+            if dist.get_backend(self.placement.data_group) == "nccl":
+                sums = sums.to(self.device)
+            dist.all_reduce(sums, group=self.placement.data_group)
+            total_loss, total = float(sums[0]), int(sums[1])
         return total_loss / max(total, 1), metrics
 
     def train_loop(self, train_dataloader, val_dataloader, metrics: Optional[Sequence] = None):
@@ -165,23 +206,24 @@ class Classifier:
             if os.path.exists(ckpt):
                 start_epoch, _, experiment_key = self.load_checkpoint(ckpt)
             else:
-                print("No checkpoint directory found. Starting from scratch.")
+                self._log("No checkpoint directory found. Starting from scratch.")
 
         tracker = make_tracker(
             cfg.use_comet,
             cfg.experiment_path,
+            is_main_process=self.is_main_process,
             resume_key=experiment_key,
             name=cfg.comet_experiment_name,
             comet_api_key=cfg.comet_api_key,
             comet_project_name=cfg.comet_project_name,
             comet_workspace=cfg.comet_workspace,
         )
-        print(f"Config:\n{cfg.to_json()}")
+        self._log(f"Config:\n{cfg.to_json()}")
 
         for epoch in range(start_epoch, cfg.num_epochs):
             epoch_start = time.time()
             avg_train_loss = self.train_one_epoch(train_dataloader)
-            print(
+            self._log(
                 f"Epoch {epoch}/{cfg.num_epochs - 1}, Train Loss: {avg_train_loss:.4f}, "
                 f"Time: {time.time() - epoch_start:.2f}s"
             )
@@ -192,9 +234,9 @@ class Classifier:
                     val_dataloader, stop_idx=cfg.evaluation_batches, metrics=metrics
                 )
                 for metric in val_metrics or ():
-                    metric.sync_across_processes()
+                    metric.sync_across_processes(self.placement.data_group)
                     out = metric.get_output()
-                    print(out)
+                    self._log(out)
                     if tracker is not None:
                         tracker.log_metrics({f"val_{k}": v for k, v in out.items()}, step=epoch)
                     metric.reset()
@@ -213,17 +255,18 @@ class Classifier:
         )
         metric_output = []
         for metric in val_metrics or ():
-            metric.sync_across_processes()
+            metric.sync_across_processes(self.placement.data_group)
             metric_output.append(metric.get_output())
         return val_loss, metric_output
 
     # ---------------------------------------------------------- checkpointing
     def save_checkpoint(self, epoch: int, experiment_key=None) -> None:
+        """Every rank calls it (the shards are gathered); rank 0 writes."""
         path = save_classifier_checkpoint(
             self.config.experiment_path, self.model, self._opt_state,
-            epoch=epoch, experiment_key=experiment_key,
+            epoch=epoch, experiment_key=experiment_key, placement=self.placement,
         )
-        print(f"Checkpoint saved to {path}")
+        self._log(f"Checkpoint saved to {path}")
 
     def load_checkpoint(self, checkpoint_path: str):
         """Restore the model (running statistics included) and, if built, Adam's state.
@@ -231,8 +274,13 @@ class Classifier:
         Returns ``(epoch, best_metric, experiment_key)``.
         """
         model, opt, epoch, best, key = load_classifier_checkpoint(checkpoint_path)
-        self.model.load_state_dict(model)
+        pl = self.placement
+        pl.load(model)
         if self._opt_state is not None and opt is not None:
+            opt = dict(opt)
+            named = list(self.model.named_parameters())
+            for k in ("mu", "nu"):
+                opt[k] = [pl.piece(n, m, p) for (n, p), m in zip(named, opt[k])]
             self._opt_state.load_state_dict(opt)
-        print(f"Checkpoint loaded. Resuming from epoch {epoch}.")
+        self._log(f"Checkpoint loaded. Resuming from epoch {epoch}.")
         return epoch, best, key

@@ -7,8 +7,29 @@ parameters, an EMA copy, Adam's state, step and EMA counters),
 ``save_image_epochs`` with the sampled images handed to ``plot_function``,
 best-metric checkpoints, resume, the save on SIGTERM/SIGINT), ``classify``,
 ``sample``, ``evaluate`` and ``inference`` (by classification or by
-sampling) and whole-state checkpoints. Not yet: the multi-process paths
-(ROADMAP A10).
+sampling) and whole-state checkpoints, on one process or several.
+
+Several processes (``torch.distributed``, :mod:`..parallel`): ``mesh`` is a
+``('data', 'model')`` ``DeviceMesh`` (by default, once a process group is
+up, every rank on the data axis), and ``config.param_sharding`` places the
+train state on it (``parallel.sharding.shard_params``: DDP, FSDP2, or
+tensor parallel on the model axis). Each rank feeds its rows of the global
+batch; the draws are the global batch's (the same seed gives the same
+draws at any world size), the train step returns the global batch's loss,
+and evaluate and inference sum the metrics' counters over the data group.
+Only rank 0 prints, plots and writes files; a checkpoint is gathered whole
+and loads under any placement. On SIGTERM/SIGINT the ranks agree on one
+step to save at (``parallel.mesh.PreemptionSync``): a rank that saved one
+step ahead of its peer would wait forever in the peer's collective. One
+process keeps the signal handler that saves at once.
+
+A train-state checkpoint also holds the engine generator's state. A resume
+restores it and, when the checkpoint was written inside an epoch (a
+preemption save), skips the batches of that epoch the saved state has
+already taken, so a resumed run continues with the uninterrupted run's
+draws and batches (the JAX engine replays the interrupted epoch). Batches
+match only where the loader's order of that epoch is the same after a
+restart: in the first epoch, or for an unshuffled loader.
 
 ``debug_nans`` (the JAX engine's ``jax_debug_nans``): the train step raises
 ``FloatingPointError`` on a non-finite loss or gradient, and classify and
@@ -33,6 +54,8 @@ inject both.
 
 from __future__ import annotations
 
+import copy
+import itertools
 import os
 import signal
 import sys
@@ -42,6 +65,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..diffusion.classify import TorchDraws, make_classifier
 from ..diffusion.sampler import TorchSampleDraws, make_sampler
@@ -49,6 +73,8 @@ from ..diffusion.schedule import make_schedule_fn
 from ..models.encoders import make_encoder
 from ..models.layers import reset_parameters
 from ..ops.wavelet import haar_dwt2
+from ..parallel.mesh import PreemptionSync, is_main_process, make_mesh
+from ..parallel.sharding import shard_params
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.tracking import make_tracker
 from .denoiser import Denoiser, supports_prefix
@@ -83,9 +109,16 @@ def _checked(forward: Callable) -> Callable:
 class DiffusionClassifier:
     """DDPM trainer and per-class-ELBO classifier over a class-conditional denoiser (PyTorch)."""
 
-    def __init__(self, backbone, config, *, device="cuda"):
+    def __init__(self, backbone, config, *, device="cuda", mesh=None):
         self.config = config.validate()
         self.device = torch.device(device)
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh(device_type=self.device.type)
+        self.mesh = mesh
+        data_rows = (0, 1)
+        if mesh is not None:
+            data_rows = (mesh["data"].get_local_rank(), mesh["data"].size())
+        self._data_group = mesh["data"].get_group() if mesh is not None else None
         self.schedule_fn = make_schedule_fn(
             config.schedule, config.noise_d, config.image_size
         )
@@ -102,15 +135,18 @@ class DiffusionClassifier:
             update_every=config.ema_update_freq,
         )
         loss_kw = dict(pred_param=config.pred_param, null_token=self.null_token)
-        self._loss_fn = make_loss_fn(self.denoiser, self.schedule_fn, **loss_kw)
-        # the public loss(): no CFG dropout, as the reference method
-        self._loss_eval = make_loss_fn(
-            self.denoiser, self.schedule_fn, cfg_dropout=0.0, **loss_kw
-        )
         # the closures reach the engine through a weak proxy: with ``self``
         # each engine would be a reference cycle, whose parameters on the
         # card only the cyclic collector frees
         me = weakref.proxy(self)
+        # training runs through the placement's forward (DDP's wrapper, or
+        # the module itself)
+        train_fn = lambda z, logsnr, labels: me.state.placement.forward_module(z, logsnr, labels)  # noqa: E731
+        self._loss_fn = make_loss_fn(train_fn, self.schedule_fn, **loss_kw)
+        # the public loss(): no CFG dropout, as the reference method
+        self._loss_eval = make_loss_fn(
+            self.denoiser, self.schedule_fn, cfg_dropout=0.0, **loss_kw
+        )
         apply_fn = lambda z, logsnr, labels: me.state.ema_model(z, logsnr, labels)  # noqa: E731
         encode_fn = tail_fn = None
         if supports_prefix(backbone):
@@ -132,6 +168,7 @@ class DiffusionClassifier:
             sampling_steps=config.sampling_steps,
             encode_fn=encode_fn,
             tail_fn=tail_fn,
+            data_rows=data_rows,
         )
         self._classify_impl = make_classifier(
             apply_fn,
@@ -148,12 +185,21 @@ class DiffusionClassifier:
             scan_unroll=config.classify_scan_unroll,
             encode_fn=encode_fn,
             tail_fn=tail_fn,
+            data_rows=data_rows,
         )
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.state = None
         self._train_step = None
 
     # ------------------------------------------------------------------ utils
+    @property
+    def is_main_process(self) -> bool:
+        return is_main_process()
+
+    def _log(self, *args, **kwargs) -> None:
+        if self.is_main_process:
+            print(*args, **kwargs)
+
     def _images(self, x) -> torch.Tensor:
         """Host images → float32 device tensor, Haar-decomposed (÷2 into [-1, 1]) if configured."""
         x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
@@ -167,7 +213,7 @@ class DiffusionClassifier:
             raise RuntimeError("initialize/restore parameters first")
 
     def init_params(self, sample_batch=None) -> None:
-        """Seeded parameter init and an EMA copy (once); ``sample_batch`` is accepted for API parity."""
+        """Seeded parameter init and an EMA copy, placed on the mesh (once); ``sample_batch`` is accepted for API parity."""
         if self.state is not None:
             return
         gen = torch.Generator().manual_seed(self.config.seed)
@@ -175,8 +221,15 @@ class DiffusionClassifier:
         if self.denoiser.encoder is not None:
             reset_parameters(self.denoiser.encoder, gen)
         self.denoiser.to(self.device)
-        print(f"Parameter count: {sum(p.numel() for p in self.denoiser.parameters())}")
-        self.state = init_train_state(self.denoiser)
+        self._log(f"Parameter count: {sum(p.numel() for p in self.denoiser.parameters())}")
+        ema = copy.deepcopy(self.denoiser).requires_grad_(False)
+        mode = self.config.param_sharding
+        self.state = init_train_state(
+            self.denoiser,
+            ema_model=ema,
+            placement=shard_params(self.denoiser, self.mesh, mode),
+            ema_placement=shard_params(ema, self.mesh, mode),
+        )
 
     def _build_train_state(self, total_steps: int) -> None:
         """Optimizer for ``total_steps`` and a fresh state: EMA = parameters, counters 0."""
@@ -185,7 +238,12 @@ class DiffusionClassifier:
             cfg.learning_rate, cfg.lr_warmup_steps, total_steps,
             state_dtype=cfg.optimizer_state_dtype,
         )
-        self.state = init_train_state(self.denoiser, tx)
+        st = self.state
+        st.placement.wrap_for_training()
+        self.state = init_train_state(
+            self.denoiser, tx, ema_model=st.ema_model,
+            placement=st.placement, ema_placement=st.ema_placement,
+        )
         self._train_step = make_train_step(
             self._loss_fn, tx, self.ema_cfg,
             grad_accum_steps=cfg.gradient_accumulation_steps,
@@ -241,8 +299,12 @@ class DiffusionClassifier:
         if labels is None:
             labels = np.full((x.shape[0],), self.null_token, np.int64)
         draws = draws if draws is not None else TorchTrainDraws(self.generator)
-        u, t, eps = draws.loss(0, 1, x.shape[0], tuple(x.shape))
-        return self._loss_eval(x, self._labels(labels), u, t, eps)
+        pl, b = self.state.placement, x.shape[0]
+        u, t, eps = draws.loss(0, 1, b * pl.data_count, (b * pl.data_count,) + tuple(x.shape[1:]))
+        if pl.data_count > 1:
+            rows = slice(pl.data_index * b, (pl.data_index + 1) * b)
+            u, t, eps = u[rows], t[rows], eps[rows]
+        return pl.mean_over_data(self._loss_eval(x, self._labels(labels), u, t, eps))
 
     def evaluate(
         self,
@@ -256,6 +318,7 @@ class DiffusionClassifier:
         show = self.config.progress
         if show is None:
             show = sys.stderr.isatty()
+        show = show and self.is_main_process
         try:
             total = len(val_loader)
             if stop_idx is not None:
@@ -318,6 +381,7 @@ class DiffusionClassifier:
         tracker = make_tracker(
             cfg.use_comet,
             cfg.experiment_path,
+            is_main_process=self.is_main_process,
             resume_key=experiment_key,
             name=cfg.comet_experiment_name,
             comet_api_key=cfg.comet_api_key,
@@ -334,13 +398,16 @@ class DiffusionClassifier:
             entry_script = os.path.abspath(sys.argv[0]) if sys.argv else None
             if entry_script and os.path.isfile(entry_script):
                 tracker.log_asset(entry_script, os.path.basename(entry_script))
-        print(cfg.to_json())
+        self._log(cfg.to_json())
 
-        # single process: on SIGTERM/SIGINT save the latest state, so
-        # `resume` continues cleanly (the multi-process sync waits for ROADMAP A10)
+        # on SIGTERM/SIGINT save the latest state, so `resume` continues
+        # cleanly: one process saves in the handler; several agree on a step
         current_epoch = start_epoch
         prev_handlers = {}
-        if cfg.save_on_signal:
+        preemption = None
+        if cfg.save_on_signal and dist.is_initialized() and dist.get_world_size() > 1:
+            preemption = PreemptionSync()
+        elif cfg.save_on_signal:
 
             def _save_and_exit(signum, frame):
                 print(f"Signal {signum}: saving preemption checkpoint...")
@@ -356,16 +423,31 @@ class DiffusionClassifier:
                 for sig in (signal.SIGTERM, signal.SIGINT)
             }
 
+        # a checkpoint written inside an epoch: skip what its state has taken
+        skip = self.state.step - start_epoch * steps_per_epoch
+        skip = skip if 0 < skip < steps_per_epoch else 0
         try:
             loss = None
             log_k = cfg.log_every_steps
-            global_step = start_epoch * steps_per_epoch
+            global_step = start_epoch * steps_per_epoch + skip
             for epoch in range(start_epoch, cfg.num_epochs):
                 current_epoch = epoch
                 epoch_start = time.time()
-                for batch in train_dataloader:
+                batches = iter(train_dataloader)
+                if skip:
+                    batches = itertools.islice(batches, skip, None)
+                    skip = 0
+                for batch in batches:
                     loss = self.train_step(batch)
                     global_step += 1
+                    if preemption is not None and preemption.should_save():
+                        self._log(f"Preemption notice: saving checkpoint at synced step {global_step}...")
+                        self.save_checkpoint(
+                            current_epoch - 1,
+                            tracker.get_key() if tracker is not None else None,
+                            checkpoint_tracker if checkpoint_metric else None,
+                        )
+                        raise SystemExit(128 + preemption.signum)
                     if log_k and global_step % log_k == 0:
                         # the host reads the loss only at this cadence
                         loss_val = float(loss)
@@ -375,9 +457,9 @@ class DiffusionClassifier:
                         if tracker is not None:
                             tracker.log_metric("loss", loss_val, step=global_step)
                             tracker.log_metric("lr", lr, step=global_step)
-                        print(f"step {global_step}/{total_steps}: loss={loss_val:.5f} lr={lr:.3e}")
+                        self._log(f"step {global_step}/{total_steps}: loss={loss_val:.5f} lr={lr:.3e}")
                 loss_val = float(loss)
-                print(f"Epoch {epoch}/{cfg.num_epochs}: {time.time() - epoch_start:.2f} s.")
+                self._log(f"Epoch {epoch}/{cfg.num_epochs}: {time.time() - epoch_start:.2f} s.")
                 if tracker is not None:
                     tracker.log_metric("loss", loss_val, epoch=epoch)
 
@@ -386,15 +468,16 @@ class DiffusionClassifier:
                     # the sampling pass only feeds plot_function: skipped without one
                     image_path = None
                     if plot_function is not None:
-                        samples, batches, _ = self.evaluate(
+                        samples, val_batches, _ = self.evaluate(
                             val_dataloader, stop_idx=cfg.evaluation_batches
                         )
-                        images_path = os.path.join(cfg.experiment_path, "training_images")
-                        os.makedirs(images_path, exist_ok=True)
-                        image_path = plot_function(
-                            output_dir=images_path, batches=batches, samples=samples,
-                            epoch=epoch, process_idx=0,
-                        )
+                        if self.is_main_process:
+                            images_path = os.path.join(cfg.experiment_path, "training_images")
+                            os.makedirs(images_path, exist_ok=True)
+                            image_path = plot_function(
+                                output_dir=images_path, batches=val_batches, samples=samples,
+                                epoch=epoch, process_idx=0,
+                            )
                     _, _, metrics = self.evaluate(
                         val_dataloader,
                         stop_idx=cfg.evaluation_batches,
@@ -402,7 +485,7 @@ class DiffusionClassifier:
                         classification=True,
                     )
                     for metric in metrics or ():
-                        metric.sync_across_processes()
+                        metric.sync_across_processes(self._data_group)
                         metric_output = metric.get_output()
                         if (
                             checkpoint_metric is not None
@@ -420,19 +503,21 @@ class DiffusionClassifier:
                         baseline = (
                             1 / cfg.n_fast_classes if cfg.fast_classification else 1 / cfg.classes
                         )
-                        print(f"Baseline Classification Accuracy: {baseline:.2f}")
-                        print(metric_output)
+                        self._log(f"Baseline Classification Accuracy: {baseline:.2f}")
+                        self._log(metric_output)
                         metric.reset()
                     self.save_checkpoint(
                         epoch,
                         tracker.get_key() if tracker is not None else None,
                         checkpoint_tracker if checkpoint_metric else None,
                     )
-                    print(f"Val evaluation time: {time.time() - eval_start:.2f} s.")
+                    self._log(f"Val evaluation time: {time.time() - eval_start:.2f} s.")
                     checkpoint_tracker["save_flag"] = False
         finally:
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
+            if preemption is not None:
+                preemption.close()
 
     def inference(
         self,
@@ -460,7 +545,7 @@ class DiffusionClassifier:
             classification=classification,
             from_t=from_t,
         )
-        if plot_function is not None and not classification:
+        if plot_function is not None and not classification and self.is_main_process:
             out_dir = os.path.join(cfg.experiment_path, "inference_images")
             os.makedirs(out_dir, exist_ok=True)
             plot_function(
@@ -470,12 +555,13 @@ class DiffusionClassifier:
             return val_samples, batches
         metric_output = []
         for metric in metrics:
-            metric.sync_across_processes()
+            metric.sync_across_processes(self._data_group)
             metric_output.append(metric.get_output())
         return metric_output, val_samples, batches
 
     # ---------------------------------------------------------- checkpointing
     def save_checkpoint(self, epoch: int, experiment_key=None, checkpoint_tracker=None):
+        """Save the whole train state and the generator's; every rank calls it, rank 0 writes."""
         self._require_state()
         best = bool(checkpoint_tracker and checkpoint_tracker.get("save_flag"))
         path = save_checkpoint(
@@ -485,14 +571,18 @@ class DiffusionClassifier:
             best_metric=checkpoint_tracker["value"] if checkpoint_tracker else None,
             experiment_key=experiment_key,
             best=best,
+            extra={"generator": self.generator.get_state(), "generator_device": self.device.type},
         )
-        print(f"Checkpoint saved to {path}")
+        self._log(f"Checkpoint saved to {path}")
 
     def load_checkpoint(self, checkpoint_path: str, *, train_state: bool = True):
         """Restore the EMA parameters and, with ``train_state``, the rest of the train state.
 
-        Adam's state is restored only into an engine that built an optimizer.
-        Returns ``(epoch, best_metric, experiment_key)``.
+        Adam's state is restored only into an engine that built an optimizer,
+        and the generator's state only from a checkpoint written on the same
+        kind of device. Every rank reads the whole files and keeps its own
+        pieces (``Placement.load``). Returns ``(epoch, best_metric,
+        experiment_key)``.
         """
         if self.state is None:
             raise RuntimeError("initialize parameters before restoring")
@@ -500,11 +590,17 @@ class DiffusionClassifier:
             checkpoint_path, train_state=train_state
         )
         state = self.state
-        state.ema_model.load_state_dict(ema)
+        state.ema_placement.load(ema)
         if train is not None:
-            state.model.load_state_dict(train["params"])
+            state.placement.load(train["params"])
             state.step, state.ema_counter = int(train["step"]), int(train["ema_counter"])
             if state.opt_state is not None and train["opt_state"] is not None:
-                state.opt_state.load_state_dict(train["opt_state"])
-        print(f"Checkpoint loaded. Resuming from epoch {epoch}. Best metric {best_metric}")
+                opt = dict(train["opt_state"])
+                named = list(state.model.named_parameters())
+                for key in ("mu", "nu"):
+                    opt[key] = [state.placement.piece(n, m, p) for (n, p), m in zip(named, opt[key])]
+                state.opt_state.load_state_dict(opt)
+            if train.get("generator_device") == self.device.type:
+                self.generator.set_state(train["generator"])
+        self._log(f"Checkpoint loaded. Resuming from epoch {epoch}. Best metric {best_metric}")
         return epoch, best_metric, experiment_key

@@ -17,6 +17,13 @@ pre-increment count, so the first step's learning rate is 0 under warmup.
 The updates run as ``torch._foreach_*`` ops on the parameters in place, with
 no host synchronisation: the clip factor stays on the device.
 
+Under several processes the optimizer and the EMA act on each rank's local
+pieces (``parallel.sharding.Placement.local``): whole replicas under DDP,
+shards under FSDP and tensor parallelism, where the moments and the EMA
+copy are shards too. The clip's ‖g‖ is the whole gradient's:
+``global_norm`` (``Placement.grad_norm``) sums the shards' squares over the
+ranks.
+
 ``state_dtype=torch.bfloat16`` is the JAX package's ``compress_opt_state``:
 Adam's ``mu`` and ``nu`` are stored in bf16; each update casts them up to
 fp32, updates the moments and takes the step from the fp32 moments, then
@@ -29,11 +36,13 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.sharding import Placement
 
 __all__ = [
     "AdamState",
@@ -150,11 +159,16 @@ class Optimizer:
         ))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamState, params) -> None:
-        """Clip ``grads``, step Adam and apply the update to ``params``, all in place."""
+    def update(self, grads, state: AdamState, params, *, global_norm: Optional[Callable] = None) -> None:
+        """Clip ``grads``, step Adam and apply the update to ``params``, all in place.
+
+        ``global_norm(grads)`` gives ‖g‖ when ``grads`` are shards (None: they are whole).
+        """
         grads, params = list(grads), list(params)
         # clip: g / ‖g‖ · max where ‖g‖ ≥ max, untouched below (no epsilon)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = global_norm(grads) if global_norm is not None else None
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         below = norm < self.max_grad_norm
         torch._foreach_div_(grads, torch.where(below, torch.ones_like(norm), norm))
         torch._foreach_mul_(
@@ -224,7 +238,8 @@ class TrainState:
 
     ``model`` holds the training parameters and ``ema_model`` the EMA copy
     (same structure, no gradients); ``opt_state`` is None until an optimizer
-    is built (an evaluation-only engine has none).
+    is built (an evaluation-only engine has none). ``placement`` and
+    ``ema_placement`` say where each lives (one process: nowhere special).
     """
 
     model: nn.Module
@@ -232,16 +247,43 @@ class TrainState:
     opt_state: Optional[AdamState] = None
     step: int = 0  # optimizer steps taken
     ema_counter: int = 0  # ema_update() calls
+    placement: Optional[Placement] = None
+    ema_placement: Optional[Placement] = None
+
+    def __post_init__(self):
+        self.placement = self.placement or Placement(self.model)
+        self.ema_placement = self.ema_placement or Placement(self.ema_model)
 
     def params(self) -> list:
-        return list(self.model.parameters())
+        """This rank's pieces of the training parameters (the whole tensors on one process)."""
+        return [Placement.local(p) for p in self.model.parameters()]
 
     def ema_params(self) -> list:
-        return list(self.ema_model.parameters())
+        return [Placement.local(p) for p in self.ema_model.parameters()]
 
 
-def init_train_state(model: nn.Module, tx: Optional[Optimizer] = None) -> TrainState:
-    """A fresh state: the EMA starts as a copy of the parameters, counters at 0."""
-    ema_model = copy.deepcopy(model).requires_grad_(False)
-    opt_state = tx.init(model.parameters()) if tx is not None else None
-    return TrainState(model, ema_model, opt_state)
+def init_train_state(
+    model: nn.Module,
+    tx: Optional[Optimizer] = None,
+    *,
+    ema_model: Optional[nn.Module] = None,
+    placement: Optional[Placement] = None,
+    ema_placement: Optional[Placement] = None,
+) -> TrainState:
+    """A fresh state: the EMA starts as a copy of the parameters, counters at 0.
+
+    ``ema_model`` (placed like ``model``) is reused, its values overwritten
+    by the parameters'; without it the EMA is a new deep copy.
+    """
+    if ema_model is None:
+        ema_model = copy.deepcopy(model).requires_grad_(False)
+    else:
+        with torch.no_grad():
+            torch._foreach_copy_(
+                [Placement.local(p) for p in ema_model.parameters()],
+                [Placement.local(p) for p in model.parameters()],
+            )
+    opt_state = (
+        tx.init(Placement.local(p) for p in model.parameters()) if tx is not None else None
+    )
+    return TrainState(model, ema_model, opt_state, placement=placement, ema_placement=ema_placement)

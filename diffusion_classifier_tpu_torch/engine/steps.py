@@ -105,31 +105,54 @@ def make_train_step(
 
     No host sync, unless ``debug_nans``: then a non-finite loss or gradient
     raises ``FloatingPointError`` before the update.
+
+    Under several data ranks (``state.placement``) ``x`` holds this rank's
+    rows of the global batch. The draws stay global: each microbatch's are
+    drawn at the global microbatch's shape, in the JAX order, and the rank
+    takes its rows, so a seed gives the same draws at any world size. The
+    returned loss is the global batch's mean; gradients reduce only with the
+    last microbatch (DDP's ``no_sync``, FSDP's gradient sync switched off
+    before it).
     """
     k = grad_accum_steps
 
     def step(state: TrainState, x: torch.Tensor, labels: torch.Tensor, draws) -> torch.Tensor:
+        pl = state.placement
         b = x.shape[0]
         if b % k:
             raise ValueError(f"batch {b} not divisible by grad_accum_steps {k}")
-        params = state.params()
-        for p in params:
+        global_micro = b * pl.data_count // k
+        shape = (global_micro,) + tuple(x.shape[1:])
+        parts = [draws.loss(i, k, global_micro, shape) for i in range(k)]
+        u, t, eps = parts[0] if k == 1 else (torch.cat(d) for d in zip(*parts))
+        if pl.data_count > 1:
+            rows = slice(pl.data_index * b, (pl.data_index + 1) * b)
+            u, t, eps = u[rows], t[rows], eps[rows]
+        model_params = list(state.model.parameters())
+        for p in model_params:
             p.grad = None
         total = None
-        for i, (mx, ml) in enumerate(zip(x.split(b // k), labels.split(b // k))):
-            u, t, eps = draws.loss(i, k, b // k, tuple(mx.shape))
-            loss_i = loss_fn(mx, ml, u, t, eps)
-            loss_i.backward()  # sums into .grad across microbatches
+        mb = b // k
+        for i in range(k):
+            sl = slice(i * mb, (i + 1) * mb)
+            with pl.sync_context(last=i == k - 1):
+                loss_i = loss_fn(x[sl], labels[sl], u[sl], t[sl], eps[sl])
+                loss_i.backward()  # sums into .grad across microbatches
             total = loss_i.detach() if total is None else total + loss_i.detach()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        params = state.params()
+        grads = [
+            pl.local(p.grad) if p.grad is not None else torch.zeros_like(q)
+            for p, q in zip(model_params, params)
+        ]
         if k > 1:
             total = total / k
             torch._foreach_div_(grads, float(k))
+        total = pl.mean_over_data(total)
         if debug_nans:
             check_finite("the loss and gradients", [total, *grads])
-        tx.update(grads, state.opt_state, params)
+        tx.update(grads, state.opt_state, params, global_norm=pl.grad_norm)
         ema_update(state.ema_params(), params, state.ema_counter, ema_cfg)
-        for p in params:
+        for p in model_params:
             p.grad = None
         state.step += 1
         state.ema_counter += 1

@@ -20,8 +20,9 @@ import numpy as np
 from ..data.chexpert import CheXpertDataLoader
 from ..data.ood import OOD_DATASETS, make_ood_loader
 from ..data.synthetic import SyntheticDataLoader
+from ..parallel.mesh import data_position, is_main_process
 from ..utils.config import ExperimentConfig
-from .common import BuildEngine, metrics, parser
+from .common import BuildEngine, device_of, metrics, parser
 
 __all__ = ["build_data", "ood_main", "write_mistakes"]
 
@@ -53,19 +54,28 @@ def write_mistakes(config: ExperimentConfig, data, predictions) -> str | None:
 
     ``predictions`` are the inference's per-batch predictions, in the test
     loader's order (drop_last batching: the file covers the first
-    ``len(predictions)`` items). Only a single process writes it, since
-    under several each holds its own rows of every batch; returns the path,
-    or None where nothing was written (several processes, or a data set
-    without paths).
+    ``len(predictions)`` items). Under several processes each holds its
+    rows of every batch: the predictions are gathered (a collective) and
+    rank 0 alone writes. Returns the path, or None where nothing was
+    written (another rank, or a data set without paths).
     """
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        return None
     dataset = getattr(data, "test_dataset", None)
     if not hasattr(dataset, "mistake_paths"):
         return None
-    preds = np.concatenate([np.asarray(p) for p in predictions])
+    predictions = [np.asarray(p) for p in predictions]
+    index, count = data_position()
+    if count > 1:
+        import torch.distributed as dist
+
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, (index, predictions))
+        by_index = dict(gathered)  # the ranks of one model group hold the same rows
+        predictions = [
+            np.concatenate([by_index[i][b] for i in range(count)]) for b in range(len(predictions))
+        ]
+    if not is_main_process():
+        return None
+    preds = np.concatenate(predictions)
     mistakes = dataset.mistake_paths(preds)
     out = os.path.join(config.experiment_path, "mistakes-ddpm-chexpert.txt")
     os.makedirs(config.experiment_path, exist_ok=True)
@@ -86,12 +96,13 @@ def ood_main(build_engine: BuildEngine, argv=None, description=None):
                    help="OOD data set (default: the config's ood_dataset)")
     args = p.parse_args(argv)
     loader = make_ood_loader(args.dataset, config)
-    engine = build_engine(config, device=args.device)
+    engine = build_engine(config, device=device_of(args))
     metric_output, predictions, batches = engine.inference(
         val_dataloader=loader,
         metrics=metrics(),
         classification=config.classification,
         checkpoint_folder=config.checkpoint_folder,
     )
-    print(args.dataset, [{k: round(v, 4) for k, v in d.items()} for d in metric_output])
+    if is_main_process():
+        print(args.dataset, [{k: round(v, 4) for k, v in d.items()} for d in metric_output])
     return metric_output, predictions, batches

@@ -12,7 +12,12 @@ metrics.
   samples (CFG) and plots when ``classification`` is false.
 
 Each takes ``--device`` (default ``cuda``) and reads its config from the
-environment, as the JAX scripts do.
+environment, as the JAX scripts do. Launched by ``torchrun
+--nproc_per_node=N``, each process first joins the process group
+(:func:`device_of`: ``parallel.mesh.init_distributed``) and drives
+``cuda:LOCAL_RANK`` (``--device cpu``: the CPU over gloo); the engine
+places its state by the config's ``param_sharding``, and only rank 0
+prints, plots and writes files.
 """
 
 from __future__ import annotations
@@ -20,11 +25,14 @@ from __future__ import annotations
 import argparse
 from typing import Callable, Optional
 
+import torch
+
 from ..engine import DiffusionClassifier
+from ..parallel.mesh import init_distributed, is_main_process
 from ..utils.config import ExperimentConfig
 from ..utils.metrics import F1, Accuracy, Precision, Recall
 
-__all__ = ["inference_main", "metrics", "parser", "train_main"]
+__all__ = ["device_of", "inference_main", "metrics", "parser", "train_main"]
 
 BuildEngine = Callable[..., DiffusionClassifier]
 
@@ -40,13 +48,18 @@ def parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+def device_of(args) -> torch.device:
+    """``--device``; under a multi-process launch this rank's, once it has joined the group."""
+    return init_distributed(args.device)
+
+
 def train_main(build_engine: BuildEngine, build_data: Callable, default_plotter: Callable,
                argv=None, plot_function=None, description=None):
     """Trains for ``TRAINING_CONFIG``'s epochs; returns the engine. ``plot_function=None`` takes ``default_plotter(config)``."""
     args = parser(description).parse_args(argv)
     config = ExperimentConfig.from_env("TRAINING_CONFIG")
     data = build_data(config)
-    engine = build_engine(config, device=args.device)
+    engine = build_engine(config, device=device_of(args))
     engine.train_loop(
         train_dataloader=data.get_train_loader(),
         val_dataloader=data.get_val_loader(),
@@ -69,7 +82,7 @@ def inference_main(build_engine: BuildEngine, build_data: Callable, default_plot
     args = parser(description).parse_args(argv)
     config = ExperimentConfig.from_env("INFERENCE_CONFIG")
     data = build_data(config)
-    engine = build_engine(config, device=args.device)
+    engine = build_engine(config, device=device_of(args))
     if not config.classification:
         return engine.inference(
             val_dataloader=data.get_test_loader(),
@@ -83,7 +96,8 @@ def inference_main(build_engine: BuildEngine, build_data: Callable, default_plot
         classification=True,
         checkpoint_folder=config.checkpoint_folder,
     )
-    print([{k: round(v, 4) for k, v in d.items()} for d in metric_output])
+    if is_main_process():
+        print([{k: round(v, 4) for k, v in d.items()} for d in metric_output])
     if on_predictions is not None:
         on_predictions(config, data, predictions)
     return metric_output, predictions, batches

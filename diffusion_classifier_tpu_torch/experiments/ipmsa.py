@@ -41,7 +41,7 @@ from ..engine import DiffusionClassifier
 from ..models.unet import UNetCondition2D, UNetConfig
 from ..utils.config import ExperimentConfig
 from ..utils.plotters import make_ipmsa_plotter
-from .common import BuildEngine, parser
+from .common import BuildEngine, device_of, parser
 
 __all__ = [
     "EXPLAIN_FROM_T",
@@ -125,11 +125,12 @@ def explain_main(build_engine: BuildEngine, argv=None, plot_function=None, descr
     over ``sampling_steps`` steps under the forced condition, plotted.
     """
     args = parser(description).parse_args(argv)
+    device = device_of(args)
     out = {}
     for active_label in (True, False):
         config = ExperimentConfig.from_env("INFERENCE_CONFIG")
         data = build_data(config, cf_label=int(active_label))
-        engine = build_engine(config, device=args.device)
+        engine = build_engine(config, device=device)
         out[active_label] = engine.inference(
             val_dataloader=data.get_test_loader(),
             plot_function=plot_function or make_ipmsa_plotter(config),

@@ -16,7 +16,8 @@ from __future__ import annotations
 from ..engine.classifier import Classifier
 from ..models.resnet import ResNet2D
 from ..utils.config import ExperimentConfig
-from .common import metrics, parser
+from ..parallel.mesh import is_main_process
+from .common import device_of, metrics, parser
 from .ipmsa import build_data
 
 __all__ = ["build_data", "build_engine", "inference_main", "train_main"]
@@ -37,7 +38,7 @@ def train_main(argv=None, description=None) -> Classifier:
     args = parser(description).parse_args(argv)
     config = ExperimentConfig.from_env("TRAINING_CONFIG")
     data = build_data(config)
-    engine = build_engine(config, device=args.device)
+    engine = build_engine(config, device=device_of(args))
     engine.train_loop(
         train_dataloader=data.get_train_loader(),
         val_dataloader=data.get_val_loader(),
@@ -51,10 +52,11 @@ def inference_main(argv=None, description=None):
     args = parser(description).parse_args(argv)
     config = ExperimentConfig.from_env("INFERENCE_CONFIG")
     data = build_data(config)
-    engine = build_engine(config, device=args.device)
+    engine = build_engine(config, device=device_of(args))
     val_loss, metric_output = engine.inference(
         val_dataloader=data.get_test_loader(), metrics=metrics()
     )
-    print(f"val_loss: {val_loss:.4f}")
-    print([{k: round(v, 4) for k, v in d.items()} for d in metric_output])
+    if is_main_process():
+        print(f"val_loss: {val_loss:.4f}")
+        print([{k: round(v, 4) for k, v in d.items()} for d in metric_output])
     return val_loss, metric_output

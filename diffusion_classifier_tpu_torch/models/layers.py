@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
+from ..parallel.collectives import copy_to_group, gather_from_group, reduce_from_group
 
 __all__ = [
     "AttentionBlock2D",
@@ -62,6 +63,10 @@ class Dense(nn.Module):
     """``y = x·Wᵀ + b`` computed in ``dtype`` from float32 parameters (flax ``nn.Dense``).
 
     ``weight`` is ``[out, in]`` (torch's layout; the flax kernel transposed).
+    Under tensor parallelism ``tp`` (a ``parallel.sharding.TPSpec``) holds
+    the layer's part: a column layer holds a row slice of the weight and
+    the bias, a row layer a column slice, its partial products summed over
+    the model group before the whole bias is added.
     """
 
     def __init__(self, in_features: int, out_features: int, dtype=torch.float32, *, bias: bool = True):
@@ -69,6 +74,7 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        self.tp = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.weight.data, self.weight.shape[1], generator)
@@ -77,7 +83,14 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = self.bias.to(self.dtype) if self.bias is not None else None
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        tp = self.tp
+        if tp is None:
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        if tp.kind == "row":
+            y = reduce_from_group(F.linear(x.to(self.dtype), self.weight.to(self.dtype)), tp.group)
+            return y if bias is None else y + bias
+        y = F.linear(copy_to_group(x.to(self.dtype), tp.group), self.weight.to(self.dtype), bias)
+        return gather_from_group(y, tp.group) if tp.gather else y
 
 
 class Conv2d(nn.Module):
@@ -294,7 +307,9 @@ class MultiHeadAttention(nn.Module):
     Self-attention when ``context_dim`` is None. With ``one_token_context``
     the context is a single token: softmax over one key is 1, so the output
     is ``to_out(broadcast(to_v(context)))`` and the module has no
-    ``to_q``/``to_k`` — as the flax tree, which never creates them.
+    ``to_q``/``to_k`` — as the flax tree, which never creates them. Under
+    tensor parallelism the projections hold whole heads, and the head count
+    comes from the local width.
     """
 
     def __init__(
@@ -323,7 +338,8 @@ class MultiHeadAttention(nn.Module):
                 raise ValueError(f"built for a one-token context, got {sk} tokens")
             # to_out per row, then broadcast: the same values as to_out(broadcast(v))
             return self.to_out(v).expand(b, sq, -1)
-        h, d = self.num_heads, self.head_dim
+        d = self.head_dim
+        h = v.shape[-1] // d  # this rank's heads
         q = self.to_q(x).view(b, sq, h, d)
         k = self.to_k(ctx).view(b, sk, h, d)
         o = attention(q, k, v.view(b, sk, h, d), backend=self.attn_backend)
@@ -331,7 +347,11 @@ class MultiHeadAttention(nn.Module):
 
 
 class GEGLUFeedForward(nn.Module):
-    """``Linear(d, 8d) → split → x·gelu_tanh(gate) → Linear(4d, d)`` (flax ``nn.gelu`` is the tanh form)."""
+    """``Linear(d, 8d) → split → x·gelu_tanh(gate) → Linear(4d, d)`` (flax ``nn.gelu`` is the tanh form).
+
+    Under tensor parallelism ``proj_in`` holds matching slices of the value
+    and gate halves, so the split pairs them on every rank.
+    """
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.float32):
         super().__init__()

@@ -15,7 +15,12 @@ normalises with them, and the running averages (buffers ``running_mean``,
 ``running_var``) move as ``r ← 0.99·r + 0.01·stat``, the biased variance
 included; ε is 1e-5. ``train=False`` normalises with the running averages.
 The mode is the ``train`` argument of ``forward``, as in flax, not
-``nn.Module.training``.
+``nn.Module.training``. Over several data ranks (``process_group``, set by
+``parallel.sharding.shard_params``) the statistics are the global batch's,
+as in the JAX package's jitted step over a sharded batch: the sums, the
+sums of squares and the counts are all-reduced (differentiably) before
+the division, so every rank normalises alike and keeps the same running
+averages.
 
 :func:`load_pretrained_resnet` reads a local ``.npz`` of a torchvision
 ``state_dict`` (the JAX module's format) into the port's names.
@@ -31,9 +36,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce_sum
 from .layers import Conv2d, reset_parameters
 
-__all__ = ["BatchNorm", "RESNET_VARIANTS", "ResNet2D", "load_pretrained_resnet"]
+__all__ = ["BatchNorm", "RESNET_BLOCKS", "RESNET_VARIANTS", "ResNet2D", "load_pretrained_resnet"]
 
 RESNET_VARIANTS = {
     # variant: (block type, stage sizes, output_dim)
@@ -53,6 +59,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.process_group = None  # the data group: statistics over the global batch
 
     def reset_parameters(self) -> None:
         with torch.no_grad():
@@ -65,8 +72,17 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp_min(torch.square(xf).mean(dim=axes) - torch.square(mean), 0.0)
+            if self.process_group is None:
+                mean = xf.mean(dim=axes)
+                sq_mean = torch.square(xf).mean(dim=axes)
+            else:
+                count = torch.full_like(xf[..., :1].sum(dim=axes), xf[..., 0].numel())
+                sums = all_reduce_sum(torch.cat(
+                    [xf.sum(dim=axes), torch.square(xf).sum(dim=axes), count]
+                ), self.process_group)
+                c = x.shape[-1]
+                mean, sq_mean = sums[:c] / sums[2 * c], sums[c : 2 * c] / sums[2 * c]
+            var = torch.clamp_min(sq_mean - torch.square(mean), 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -123,6 +139,9 @@ class _Bottleneck(nn.Module):
         if self.downsample is not None:
             x = self.bn_down(self.downsample(x), train)
         return F.relu(x + h)
+
+
+RESNET_BLOCKS = (_BasicBlock, _Bottleneck)
 
 
 class ResNet2D(nn.Module):

@@ -18,7 +18,15 @@ running statistics included, and Adam's state) and the same sidecar
 (:func:`save_classifier_checkpoint`, :func:`load_classifier_checkpoint`).
 
 Each file is written under a temporary name and renamed into place, so a
-crash leaves the previous file whole; the sidecar goes last. The JAX
+crash leaves the previous file whole; the sidecar goes last.
+
+Under several processes a checkpoint is still whole: every rank takes part
+in gathering the parameters, the EMA and Adam's moments from their shards
+(``parallel.sharding.Placement.full``), rank 0 alone writes, and the others
+wait at a barrier until the files are in place (the JAX package's primary-
+only sidecar and barriered save). Every rank reads the whole files and
+re-places them (``Placement.load``), so a checkpoint loads under any world
+size and ``param_sharding``. The JAX
 package's Orbax checkpoints are not readable yet (ROADMAP A8);
 ``utils/convert.py`` bridges a flax parameter tree in memory.
 """
@@ -30,6 +38,7 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 __all__ = [
     "load_checkpoint",
@@ -48,6 +57,34 @@ def _cpu(state_dict) -> dict:
     return {k: v.detach().to("cpu") for k, v in state_dict.items()}
 
 
+def _is_writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _whole(placement, module) -> dict:
+    """The module's whole state dict on the CPU (every rank gathers; rank 0 keeps it)."""
+    if placement is None:
+        return _cpu(module.state_dict())
+    return _cpu(placement.full_state_dict())
+
+
+def _opt_whole(opt_state, placement, module) -> Optional[dict]:
+    """Adam's state with whole moments, in the parameters' order (a collective under sharding)."""
+    if opt_state is None:
+        return None
+    opt = opt_state.state_dict()
+    if placement is not None:
+        named = list(module.named_parameters())
+        for key in ("mu", "nu"):
+            opt[key] = [placement.full(n, m, like=p) for (n, p), m in zip(named, opt[key])]
+    return {**opt, "mu": [t.cpu() for t in opt["mu"]], "nu": [t.cpu() for t in opt["nu"]]}
+
+
 def _atomic_write(path: str, write) -> None:
     tmp = path + ".new"
     write(tmp)
@@ -62,36 +99,35 @@ def save_checkpoint(
     best_metric: Optional[float] = None,
     experiment_key: Optional[str] = None,
     best: bool = False,
+    extra: Optional[dict] = None,
 ) -> str:
     """Save ``state`` (an ``engine.state.TrainState``) as the latest, and the best if ``best``.
 
-    Returns the latest checkpoint's folder.
+    Every rank calls it; rank 0 writes. ``extra`` joins the train-state
+    payload (the engine's generator state). Returns the latest checkpoint's
+    folder.
     """
-    ema = _cpu(state.ema_model.state_dict())
+    ema = _whole(state.ema_placement, state.ema_model)
     train = {
-        "params": _cpu(state.model.state_dict()),
-        "opt_state": _opt_cpu(state.opt_state),
+        "params": _whole(state.placement, state.model),
+        "opt_state": _opt_whole(state.opt_state, state.placement, state.model),
         "step": state.step,
         "ema_counter": state.ema_counter,
+        **(extra or {}),
     }
     # the NEXT epoch, as the JAX package stores it
     sidecar = {"epoch": epoch + 1, "best_metric": best_metric, "experiment_key": experiment_key}
     folders = [os.path.join(experiment_path, "checkpoints")]
     if best:
         folders.append(os.path.join(experiment_path, "best_checkpoint"))
-    for directory in folders:
-        os.makedirs(directory, exist_ok=True)
-        _atomic_write(os.path.join(directory, _TRAIN), lambda p: torch.save(train, p))
-        _atomic_write(os.path.join(directory, _EMA), lambda p: torch.save(ema, p))
-        _write_sidecar(directory, sidecar)
+    if _is_writer():
+        for directory in folders:
+            os.makedirs(directory, exist_ok=True)
+            _atomic_write(os.path.join(directory, _TRAIN), lambda p: torch.save(train, p))
+            _atomic_write(os.path.join(directory, _EMA), lambda p: torch.save(ema, p))
+            _write_sidecar(directory, sidecar)
+    _barrier()
     return folders[0]
-
-
-def _opt_cpu(opt_state) -> Optional[dict]:
-    if opt_state is None:
-        return None
-    opt = opt_state.state_dict()
-    return {**opt, "mu": [t.cpu() for t in opt["mu"]], "nu": [t.cpu() for t in opt["nu"]]}
 
 
 def _write_sidecar(directory: str, sidecar: dict) -> None:
@@ -112,14 +148,25 @@ def _read_sidecar(checkpoint_path: str):
 
 
 def save_classifier_checkpoint(
-    experiment_path: str, model, opt_state, *, epoch: int, experiment_key: Optional[str] = None
+    experiment_path: str, model, opt_state, *, epoch: int, experiment_key: Optional[str] = None,
+    placement=None,
 ) -> str:
-    """Save the classifier's model (parameters and running statistics) and Adam's state; returns the folder."""
-    payload = {"model": _cpu(model.state_dict()), "opt_state": _opt_cpu(opt_state)}
+    """Save the classifier's model (parameters and running statistics) and Adam's state; returns the folder.
+
+    Every rank calls it; rank 0 writes.
+    """
+    payload = {
+        "model": _whole(placement, model),
+        "opt_state": _opt_whole(opt_state, placement, model),
+    }
     directory = os.path.join(experiment_path, "checkpoints")
-    os.makedirs(directory, exist_ok=True)
-    _atomic_write(os.path.join(directory, _CLASSIFIER), lambda p: torch.save(payload, p))
-    _write_sidecar(directory, {"epoch": epoch + 1, "best_metric": None, "experiment_key": experiment_key})
+    if _is_writer():
+        os.makedirs(directory, exist_ok=True)
+        _atomic_write(os.path.join(directory, _CLASSIFIER), lambda p: torch.save(payload, p))
+        _write_sidecar(
+            directory, {"epoch": epoch + 1, "best_metric": None, "experiment_key": experiment_key}
+        )
+    _barrier()
     return directory
 
 

@@ -149,10 +149,12 @@ class ExperimentConfig:
     ood_dataset: str = "mimic"  # 'mimic' | 'padchest' | 'isic'
     # --- runtime ---
     slurm: bool = False
-    # parameter/optimizer-state placement over the mesh: 'tp' shards the big
-    # matmul weights over the 'model' axis (no-op on a 1-wide model axis);
-    # 'fsdp' additionally shards every large param + its Adam/EMA state over
-    # the 'data' axis (ZeRO-3); 'replicated' forces full replication
+    # parameter/optimizer-state placement over the ('data', 'model') mesh of
+    # the processes (parallel/sharding.py): 'tp' slices the attention, GEGLU
+    # and time-embedding matmuls over the 'model' axis (Megatron) and runs
+    # DDP on the 'data' axis (DDP alone on a 1-wide model axis); 'fsdp'
+    # shards every parameter with its Adam/EMA state over the 'data' axis
+    # (FSDP2, ZeRO-3); 'replicated' is DDP. One process places nothing
     param_sharding: str = "tp"  # 'tp' | 'fsdp' | 'replicated'
     attn_backend: str = "auto"  # 'auto' | 'xla' | 'pallas' (auto: measured
     # routing — pallas flash attention for sequences >= 256 tokens)

@@ -1,10 +1,13 @@
-"""Streaming classification metrics — port of ``utils/metrics.py``, single process.
+"""Streaming classification metrics — port of ``utils/metrics.py``.
 
 Same surface: ``reset / update((y_pred, batch)) / compute / get_output /
 sync_across_processes``, integer counters, Precision/Recall/F1 binary with
 class 1 positive. Predictions may be torch tensors (any device) or numpy.
-Summing counters across ranks with ``torch.distributed`` comes with
-multi-process evaluation (ROADMAP A8).
+
+Under several processes each rank counts its own rows, and
+``sync_across_processes`` sums the counters over the data group with one
+``all_reduce`` of an int64 tensor (the reference's ``accelerator.reduce``,
+JAX's allgather-and-sum).
 """
 
 from __future__ import annotations
@@ -34,12 +37,14 @@ class Metric:
 
     def reset(self) -> None:
         self.counters = {k: 0 for k in self.counter_names}
+        self._synced = False
 
     def update(self, output) -> None:
         y_pred, batch = output
         delta = self._delta(_numpy(y_pred), _numpy(batch["prompt"]))
         for k, v in delta.items():
             self.counters[k] += int(v)
+        self._synced = False
 
     def compute(self) -> Mapping[str, float]:
         raise NotImplementedError
@@ -47,8 +52,22 @@ class Metric:
     def get_output(self) -> Mapping[str, float]:
         return self.compute()
 
-    def sync_across_processes(self) -> None:
-        """Sum counters across ranks: a no-op until multi-process evaluation lands."""
+    def sync_across_processes(self, group=None) -> None:
+        """Sum the counters over ``group`` (default: every rank); once per round of updates.
+
+        The reduction runs on the backend's device (NCCL reduces CUDA
+        tensors only). One process: nothing happens.
+        """
+        import torch.distributed as dist
+
+        if self._synced or not dist.is_initialized() or dist.get_world_size(group) == 1:
+            return
+        device = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+        names = self.counter_names
+        t = torch.tensor([self.counters[k] for k in names], dtype=torch.int64, device=device)
+        dist.all_reduce(t, group=group)
+        self.counters = dict(zip(names, (int(v) for v in t.tolist())))
+        self._synced = True
 
     def _delta(self, y_pred: np.ndarray, y_true: np.ndarray) -> Mapping[str, int]:
         raise NotImplementedError

@@ -59,6 +59,87 @@ def seeded_params(shapes, seed: int = 0):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
+# 2 layers, 2 heads x 32 (width 64), 32 px at patch 4: 64 tokens
+TINY_DIT = dict(
+    num_attention_heads=2, attention_head_dim=32, in_channels=4, num_layers=2,
+    sample_size=32, patch_size=4, num_classes=3,
+)
+TINY_DIT_TRAIN = dict(
+    lr=1e-3, warmup=2, total=3, ema=dict(beta=0.9999, update_after_step=1, update_every=1)
+)
+
+
+@functools.lru_cache(maxsize=1)
+def tiny_dit_run():
+    """``(flax params, 3 batches of (x [4, 32, 32, 4], y [4]), 3 step keys)`` for :data:`TINY_DIT`."""
+    from diffusion_classifier_tpu.models.dit import DiT as JaxDiT
+    from diffusion_classifier_tpu.models.dit import DiTConfig as JaxDiTConfig
+
+    rng = np.random.default_rng(5)
+    batches = [
+        (rng.uniform(-1, 1, (4, 32, 32, 4)).astype(np.float32), rng.integers(0, 3, 4).astype(np.int32))
+        for _ in range(3)
+    ]
+    keys = jax.random.split(jax.random.PRNGKey(7), 3)
+    x0, y0 = batches[0]
+    init = jax.jit(JaxDiT(JaxDiTConfig(**TINY_DIT)).init)
+    params = to_numpy_tree(init(jax.random.PRNGKey(0), x0, np.zeros(4, np.float32), y0))
+    return params, batches, keys
+
+
+@functools.lru_cache(maxsize=2)
+def jax_tiny_dit_train(k: int):
+    """The JAX package's three train steps on :func:`tiny_dit_run` with ``k`` microbatches.
+
+    XLA attention (the Pallas backward is held to the port's in
+    test_torch_ops). Returns ``(losses, params, ema_params)``.
+    """
+    import jax.numpy as jnp
+
+    from diffusion_classifier_tpu.diffusion.schedule import make_schedule_fn as jax_schedule_fn
+    from diffusion_classifier_tpu.engine import state as jax_state
+    from diffusion_classifier_tpu.engine import steps as jax_steps
+    from diffusion_classifier_tpu.models.dit import DiT as JaxDiT
+    from diffusion_classifier_tpu.models.dit import DiTConfig as JaxDiTConfig
+
+    params, batches, keys = tiny_dit_run()
+    train = TINY_DIT_TRAIN
+    dit = JaxDiT(JaxDiTConfig(**TINY_DIT, attn_backend="xla"))
+    schedule = jax_schedule_fn("shifted_cosine", 64, 32)
+    loss_fn = jax_steps.make_loss_fn(
+        lambda p, z, lg, lab: dit.apply(p, z, lg, lab), schedule, pred_param="v", null_token=3
+    )
+    tx = jax_state.make_optimizer(train["lr"], train["warmup"], train["total"])
+    step = jax_steps.make_train_step(
+        loss_fn, tx, jax_state.EmaConfig(**train["ema"]), grad_accum_steps=k, donate=False
+    )
+    st = jax_state.init_train_state(params, tx)
+    losses = []
+    for (x, y), key in zip(batches, keys):
+        st, loss = step(st, jnp.asarray(x), jnp.asarray(y), key)
+        losses.append(float(loss))
+    return losses, to_numpy_tree(st.params), to_numpy_tree(st.ema_params)
+
+
+# fp32 on both sides; they differ in summation order (matmuls, attention,
+# the global norm) and in where float32 rounds Adam's and the EMA's scalars.
+# Held to rtol 1e-5 / atol 2e-6. One exception: the key third of each qkv
+# bias has a gradient that is zero in exact arithmetic (softmax ignores a
+# shift shared by all keys), so both sides hold rounding noise there, which
+# Adam's normalisation turns into steps of size ~lr and arbitrary sign;
+# those entries are held to 2·lr.
+def assert_dit_state_close(got: dict, want: dict, lr: float = TINY_DIT_TRAIN["lr"]) -> None:
+    """A trained tiny DiT's state dict against the JAX run's, bridged to the same names."""
+    for name, value in got.items():
+        got_np, want_np = np.asarray(value), np.asarray(want[name])
+        if name.endswith("qkv.bias"):
+            width = got_np.shape[0] // 3
+            key = slice(width, 2 * width)
+            np.testing.assert_allclose(got_np[key], want_np[key], rtol=0, atol=2 * lr)
+            got_np, want_np = np.delete(got_np, key), np.delete(want_np, key)
+        np.testing.assert_allclose(got_np, want_np, rtol=1e-5, atol=2e-6, err_msg=name)
+
+
 class JaxDraws:
     """Replays ``diffusion/classify.py``'s JAX key tree as a port ``Draws`` provider.
 

@@ -317,3 +317,39 @@ def test_debug_nans_check_on_the_card(cuda):
     check_finite("finite", [ok, ok.sum()])
     with pytest.raises(FloatingPointError, match="non-finite values in a NaN"):
         check_finite("a NaN", [ok, ok.sum() * float("nan")])
+
+
+def test_ddp_over_gloo_on_the_card_matches_one_process(cuda, tmp_path):
+    """Two ranks share the card over gloo (NCCL refuses two ranks on one device): 3 DDP steps of the tiny DiT.
+
+    Held to the one-process run on the card, on the engine's global draws:
+    losses rtol 1e-5, parameters rtol 1e-5 / atol 2e-6, but the key third
+    of each qkv bias (a gradient zero in exact arithmetic, which Adam turns
+    into steps of ~lr either way) at 2·lr.
+    """
+    import numpy as np
+
+    import _torch_mp as mp
+
+    rng = np.random.default_rng(5)
+    batches = [(rng.uniform(-1, 1, (4, 32, 32, 4)).astype(np.float32), rng.integers(0, 3, 4).astype(np.int32))
+               for _ in range(mp.TRAIN_STEPS)]
+    torch.save({"batches": batches}, tmp_path / "inputs.pt")
+    procs = mp.spawn("dit-cuda", tmp_path)
+    ref = mp.dit_engine(tmp_path / "one", device="cuda")
+    ref.init_params()
+    ref._build_train_state(mp.TRAIN_STEPS)
+    losses = [float(ref.train_step({"images": x, "prompt": y})) for x, y in batches]
+    params = {k: v.cpu() for k, v in ref.state.model.state_dict().items()}
+    outs = mp.collect(procs, tmp_path, timeout=300)
+    lr = mp.DIT_CONFIG["learning_rate"]
+    for out in outs:
+        assert out["ddp"] and out["launches"][0] > 0 and out["launches"][1] > 0
+        np.testing.assert_allclose(out["losses"], losses, rtol=1e-5)
+        for name, want in params.items():
+            got, want = out["params"][name].numpy(), want.numpy()
+            if name.endswith("qkv.bias"):
+                key = slice(got.shape[0] // 3, 2 * got.shape[0] // 3)
+                np.testing.assert_allclose(got[key], want[key], rtol=0, atol=2 * lr)
+                got, want = np.delete(got, key), np.delete(want, key)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-6, err_msg=name)

@@ -95,3 +95,33 @@ def test_port_lz4_decoder_is_its_own_build():
         capture_output=True, text=True, timeout=300, cwd=REPO,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+_PARALLEL = """
+import sys
+import torch.distributed
+from diffusion_classifier_tpu_torch.parallel import collectives, mesh, sharding
+root = {root!r}
+stray = sorted(
+    name for name, m in list(sys.modules.items())
+    if (getattr(m, "__file__", None) or "").startswith(root)
+)
+assert "jax" not in sys.modules, "jax was imported"
+assert not stray, stray
+print(mesh.__name__, sharding.__name__, collectives.__name__)
+"""
+
+
+def test_parallel_modules_import_without_jax_or_the_jax_package():
+    """The multi-process layer stands alone: ``parallel/{mesh,sharding,collectives}.py``."""
+    root = os.path.join(REPO, "diffusion_classifier_tpu") + os.sep
+    proc = subprocess.run(
+        [sys.executable, "-c", _PARALLEL.format(root=root)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.split() == [
+        "diffusion_classifier_tpu_torch.parallel.mesh",
+        "diffusion_classifier_tpu_torch.parallel.sharding",
+        "diffusion_classifier_tpu_torch.parallel.collectives",
+    ]

@@ -22,15 +22,18 @@ import optax
 import pytest
 import torch
 
-from _torch_parity import JaxTrainDraws, to_numpy_tree
+from _torch_parity import (
+    TINY_DIT,
+    TINY_DIT_TRAIN,
+    JaxTrainDraws,
+    assert_dit_state_close,
+    jax_tiny_dit_train,
+    tiny_dit_run,
+)
 from diffusion_classifier_tpu.data.synthetic import SyntheticDataLoader as JaxSynthetic
 from diffusion_classifier_tpu.data.synthetic import make_synthetic_arrays as jax_arrays
 from diffusion_classifier_tpu.diffusion.process import weighted_mse_loss as jax_wmse
-from diffusion_classifier_tpu.diffusion.schedule import make_schedule_fn as jax_schedule_fn
 from diffusion_classifier_tpu.engine import state as jax_state
-from diffusion_classifier_tpu.engine import steps as jax_steps
-from diffusion_classifier_tpu.models.dit import DiT as JaxDiT
-from diffusion_classifier_tpu.models.dit import DiTConfig as JaxDiTConfig
 from diffusion_classifier_tpu_torch.data.synthetic import SyntheticDataLoader, make_synthetic_arrays
 from diffusion_classifier_tpu_torch.diffusion.process import weighted_mse_loss
 from diffusion_classifier_tpu_torch.diffusion.schedule import make_schedule_fn
@@ -146,58 +149,19 @@ def test_bf16_optimizer_state_is_not_ported():
         state.make_optimizer(1e-4, 1, 2, state_dtype="fp16")
 
 
-# 2 layers, 2 heads x 32 (width 64), 32 px at patch 4: 64 tokens
-TINY = dict(
-    num_attention_heads=2, attention_head_dim=32, in_channels=4, num_layers=2,
-    sample_size=32, patch_size=4, num_classes=3,
-)
-TRAIN = dict(lr=1e-3, warmup=2, total=3, ema=dict(beta=0.9999, update_after_step=1, update_every=1))
+TINY = TINY_DIT
+TRAIN = TINY_DIT_TRAIN
 
 
-def _jax_train(params, batches, keys, k):
-    """The JAX package's three train steps (XLA attention: the Pallas backward is held to the port's in test_torch_ops)."""
-    dit = JaxDiT(JaxDiTConfig(**TINY, attn_backend="xla"))
-    schedule = jax_schedule_fn("shifted_cosine", 64, 32)
-    loss_fn = jax_steps.make_loss_fn(
-        lambda p, z, lg, lab: dit.apply(p, z, lg, lab), schedule, pred_param="v", null_token=3
-    )
-    tx = jax_state.make_optimizer(TRAIN["lr"], TRAIN["warmup"], TRAIN["total"])
-    step = jax_steps.make_train_step(
-        loss_fn, tx, jax_state.EmaConfig(**TRAIN["ema"]), grad_accum_steps=k, donate=False
-    )
-    st = jax_state.init_train_state(params, tx)
-    losses = []
-    for (x, y), key in zip(batches, keys):
-        st, loss = step(st, jnp.asarray(x), jnp.asarray(y), key)
-        losses.append(float(loss))
-    return losses, to_numpy_tree(st.params), to_numpy_tree(st.ema_params)
-
-
-# fp32 on both sides; they differ in summation order (matmuls, attention,
-# the global norm) and in where float32 rounds Adam's and the EMA's scalars.
-# Held to rtol 1e-5 / atol 2e-6 (losses to rtol 1e-5). One exception: the
-# key third of each qkv bias has a gradient that is zero in exact arithmetic
-# (softmax ignores a shift shared by all keys), so both sides hold rounding
-# noise there, which Adam's normalisation turns into steps of size ~lr and
-# arbitrary sign; those entries are held to 2·lr.
 @pytest.fixture(scope="module")
 def tiny_run():
-    rng = np.random.default_rng(5)
-    batches = [
-        (rng.uniform(-1, 1, (4, 32, 32, 4)).astype(np.float32), rng.integers(0, 3, 4).astype(np.int32))
-        for _ in range(3)
-    ]
-    keys = jax.random.split(jax.random.PRNGKey(7), 3)
-    x0, y0 = batches[0]
-    init = jax.jit(JaxDiT(JaxDiTConfig(**TINY)).init)
-    params = to_numpy_tree(init(jax.random.PRNGKey(0), x0, np.zeros(4, np.float32), y0))
-    return params, batches, keys
+    return tiny_dit_run()
 
 
 @pytest.mark.parametrize("accum", [1, 2])
 def test_three_train_steps_match_jax(tiny_run, accum):
     params, batches, keys = tiny_run
-    want_losses, want_params, want_ema = _jax_train(params, batches, keys, accum)
+    want_losses, want_params, want_ema = jax_tiny_dit_train(accum)
 
     model = Denoiser(DiT(DiTConfig(**TINY, attn_backend="auto")))
     model.backbone.load_state_dict(flax_to_state_dict(params, model.backbone))
@@ -214,15 +178,7 @@ def test_three_train_steps_match_jax(tiny_run, accum):
     assert (st.step, st.ema_counter, st.opt_state.count) == (3, 3, 3)
     np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
     for got_model, want in ((st.model.backbone, want_params), (st.ema_model.backbone, want_ema)):
-        want_sd = flax_to_state_dict(want, got_model)
-        for name, value in got_model.state_dict().items():
-            got_np, want_np = value.numpy(), want_sd[name].numpy()
-            if name.endswith("qkv.bias"):
-                width = got_np.shape[0] // 3
-                key = slice(width, 2 * width)
-                np.testing.assert_allclose(got_np[key], want_np[key], rtol=0, atol=2 * TRAIN["lr"])
-                got_np, want_np = np.delete(got_np, key), np.delete(want_np, key)
-            np.testing.assert_allclose(got_np, want_np, rtol=1e-5, atol=2e-6, err_msg=name)
+        assert_dit_state_close(got_model.state_dict(), flax_to_state_dict(want, got_model))
 
 
 def test_remat_recomputes_blocks_with_the_same_gradients():
