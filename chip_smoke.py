@@ -18,7 +18,9 @@ training through ``experiments/cifar10/train_torch.py``; the CheXpert data
 path (JPEG loader, decode cache, the CheXpert UNet's train, inference and
 OOD entry points, the DiT through the loader); and the IPMSA family (MRI
 volume loader, the IPMSA UNet's train, inference and counterfactual
-explanation, the IPMSA DiT, the ResNet-50 baseline). Phases:
+explanation, the IPMSA DiT, the ResNet-50 baseline); multi-process training
+and evaluation; and the flagship UNet conditioned on a T5 class table
+(``encoder_type 't5'``) through the CIFAR-10 entry points. Phases:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: compiles both kernels, prints the seconds, ptxas' register use and
@@ -26,9 +28,11 @@ explanation, the IPMSA DiT, the ResNet-50 baseline). Phases:
    ``cuobjdump -sass`` (found beside ``nvcc``); fails if a bf16 entry of the
    forward, dk/dv or dq kernels has none (tensor cores unused);
 3. forward kernel vs its plain PyTorch version on the card at the main
-   path's shapes (the DiT's 1024 tokens and its OOD run's 64; the IPMSA
-   UNet's classify and explain tails, its B=1 tail and its B=64 step at 256
-   tokens × 8 × 64; the IPMSA DiT's train batch), strided q/k/v thirds and ragged and odd sequences in both dtypes included, with timings (plain; kernel and SDPA as a yardstick in
+   path's shapes (the DiT's 1024 tokens at 16, 32 and 64 rows, the
+   classify groups of 1, 2 and 4 evaluations that the card's free memory
+   can give, and its OOD run's 64 tokens; the IPMSA UNet's classify tails
+   at each group size, its explain tail, its B=1 tails and its B=64 step
+   at 256 tokens × 8 × 64; the IPMSA DiT's train batch), strided q/k/v thirds and ragged and odd sequences in both dtypes included, with timings (plain; kernel and SDPA as a yardstick in
    turns: kernel, SDPA, SDPA, kernel, each run 10 calls back to back, and
    again of single calls, which also count the wrapper's host time; the
    host microseconds of one wrapper call) and the bound;
@@ -57,10 +61,15 @@ explanation, the IPMSA DiT, the ResNet-50 baseline). Phases:
     11 launches a tail and none in the encode;
 11. the CIFAR classify entry point: a seeded checkpoint, then (on one val batch)
     ``inference_torch.main()`` at B=64, 4 evaluations × 10 classes, with the
-    encode and tail forwards counted against the count that
-    ``auto_eval_group`` and the class chunk give, 11 launches a tail, no
-    alignment copy; classify throughput at B=64 and latency at B=1, with a
-    profiler table split into encode and tail;
+    encode and tail forwards counted against the count that the group size
+    and the class chunk give, 11 launches a tail, no alignment copy; the
+    group size that the card's free memory gave (``card_eval_group``, held
+    to its rule and printed beside the JAX budget's) and the call's peak
+    memory against the card's total; classify throughput at B=64 and
+    latency at B=1, with a profiler table split into encode and tail; the
+    card bytes a megabatch row takes per image element (``row_bytes``: the
+    peak at a group of 2 evaluations less 1), which must not exceed
+    ``ROW_BYTES_PER_ELEM``, the constant the group size is budgeted with;
 12. CFG sampling through both entry points (``classification=false``, 128
     steps, a numpy-only plot function): the CIFAR UNet at B=32 (encode on B
     and tail on 2B each step) and DiT-b4 at B=16 (one 2B forward each
@@ -98,8 +107,9 @@ explanation, the IPMSA DiT, the ResNet-50 baseline). Phases:
     B=16, one epoch), the step alone at B=16 and at B=64 with remat (ms,
     peak memory, device time, idle share); ``inference_torch.py`` on its
     checkpoint (forwards counted, the mistakes file against the
-    predictions), classify at B=16 and B=1 with profiler tables and the
-    kernels of an encode and a tail; ``ood_torch.py`` on MIMIC, PadChest
+    predictions; the group size, peak memory and bytes a row as in phase
+    11), classify at B=16 and B=1 with profiler tables and the kernels of
+    an encode and a tail; ``ood_torch.py`` on MIMIC, PadChest
     and ISIC;
 19. the CheXpert DiT through the loader: ``train_torch.py`` on the tree (12
     backward launches a step), ``inference_torch.py`` (the mistakes file)
@@ -121,8 +131,9 @@ explanation, the IPMSA DiT, the ResNet-50 baseline). Phases:
     launches and 10 plain-route calls a tail, none in the encode;
     ``experiments/ipmsa/train_torch.py`` for one epoch on the lz4 tree (B=8),
     the step alone at B=8 and at the config's B=64 (ms, peak memory, idle
-    share); ``inference_torch.py`` (4 evaluations × 2 classes), classify at
-    B=8 and B=1; ``explain_torch.py`` for both forced labels (t = 0.5, 16
+    share); ``inference_torch.py`` (4 evaluations × 2 classes; the group
+    size, peak memory and bytes a row as in phase 11), classify at B=8 and
+    B=1; ``explain_torch.py`` for both forced labels (t = 0.5, 16
     steps); fails if a kernel ran at a shape that phases 3, 6 and 22 did
     not hold against its plain version;
 23. the IPMSA DiT (32,955,520 parameters, 1024 tokens × 6 × 64):
@@ -159,7 +170,21 @@ explanation, the IPMSA DiT, the ResNet-50 baseline). Phases:
     SIGTERM to both after step 3; both save at one agreed step (only rank 0
     writes) and exit 143; two fresh ranks resume and finish the epoch, and
     the interrupted and resumed losses are those of an uninterrupted run
-    within 1e-3.
+    within 1e-3;
+30. the text-conditioned flagship: a ``[11, 8, 768]`` fp32 class table
+    (t5-base's width, ``t5_max_length`` tokens) written as ``.npy`` from a
+    seed, the full-width UNet built for it (``encoder_hid_proj`` 768 → 128);
+    ``experiments/cifar10/train_torch.py`` for one epoch (8 steps at B=64,
+    11 backward launches a step) and the step alone under
+    ``profiling.StepTimer``; ``inference_torch.py`` at B=64, 4 evaluations ×
+    10 classes (11 flash launches and 11 plain-route cross-attentions over
+    the table's 8 tokens a tail; group size and peak memory as in phase
+    11); ``encode_text_prompt`` against the table; classify timed with
+    ``profiling.timed`` and ``StepTimer``, one call under
+    ``profiling.trace``, whose trace must hold CUDA kernel events and the
+    tails' flash kernels; CFG sampling of 32 images at 32 steps through
+    ``inference_torch.py`` (the null row as the unconditional half), finite
+    in [-1, 1]; every kernel shape held by phases 3, 6, 9 and 13.
 
 Phases 25-27 and 29 run their ranks as ``chip_smoke.py --worker`` and
 phase 28 its entry points as ``chip_smoke.py --entry`` under ``torchrun``;
@@ -167,7 +192,7 @@ each reports its launches, which the kernels' line sums by path. Two ranks
 on one card measure the code path and its overhead, not multi-GPU scaling.
 
 Each path's launch and copy counts are set to 0 just before it runs and read
-just after. Before each of phases 18-29 the card must hold under 0.5 GB (what
+just after. Before each of phases 18-30 the card must hold under 0.5 GB (what
 an earlier phase leaves would inflate the phase's peak memory). Any failed
 check raises and exits non-zero. The second-to-last line
 is the kernels' JSON record; the last line is
@@ -206,10 +231,18 @@ DIT_SHAPE = (16, 1024, 6, 64)
 # tokens at patch 4; 64 rows a forward, two forwards a batch of 16 images at
 # 4 evaluations × 2 classes
 DIT_OOD_SHAPE = (64, 64, 6, 64)
+# the DiT's classify megabatch at the group sizes G = 2 and 4 that a stage of
+# 4 evaluations can take on the card (``card_eval_group``, from the free
+# memory; ``row_bytes`` runs G = 1 and 2): 16 images x 1 class a chunk x G
+# (phase 5, the train eval), DDP's 8 rows a rank x 2 classes x G, and the
+# IPMSA DiT's 8 x 2 x G; G = 1 is DIT_SHAPE
+DIT_GROUP_SHAPES = [(16 * g, 1024, 6, 64) for g in (2, 4)]
 # the CIFAR UNet's attention: level 2 (8x8 tokens, 256 = 8 x 32) and level 3
-# and mid (4x4 tokens, 512 = 8 x 64), at the classify megabatch (64 images x
-# 1 class a chunk) and the sampler's CFG pair (2 x 64)
-UNET_SHAPES = [(64, 64, 8, 32), (64, 16, 8, 64), (128, 64, 8, 32), (128, 16, 8, 64)]
+# and mid (4x4 tokens, 512 = 8 x 64), at the sampler's tail on its CFG pair
+# (2 x 32 and 2 x 64 images), at a classify tail of G x 64 images x 1 class
+# a chunk (G = 1, 2, 4), and at B=1 of 4 evaluations x 10 classes
+UNET_SHAPES = [(64, 64, 8, 32), (64, 16, 8, 64), (128, 64, 8, 32), (128, 16, 8, 64),
+               (256, 64, 8, 32), (256, 16, 8, 64), (40, 64, 8, 32), (40, 16, 8, 64)]
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 without
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -227,22 +260,30 @@ RAGGED_CASES = [
 # train batch of 8 (1024 tokens, 6 x 64). Phase 22 holds (8, 256, 8, 64).
 IP_TAIL_SHAPE = (16, 256, 8, 64)
 IP_B1_SHAPE = (2, 256, 8, 64)
+# its classify tails at G = 2 (B=8: 32 rows; B=1: 4), beside G = 1 (the
+# two above) and G = 4 (IP_B64_SHAPE and IP_SHAPE's rows)
+IP_GROUP_SHAPES = [(32, 256, 8, 64), (4, 256, 8, 64)]
 IP_B64_SHAPE = (64, 256, 8, 64)
 IP_DIT_SHAPE = (8, 1024, 6, 64)
 # the CIFAR UNet under tensor parallelism on a model axis of 2 (phase 27):
 # 4 of its 8 heads a rank, at the train and classify batch of 64
 TP_CASES = [(shape, dtype) for shape in ((64, 64, 4, 32), (64, 16, 4, 64))
             for dtype in (torch.float32, torch.bfloat16)]
+# its classify tails (fp32) at the group sizes G = 2 and 4: G x 64 images
+TP_CLASSIFY_CASES = [((64 * g, s, 4, d), torch.float32) for g in (2, 4) for s, d in ((64, 32), (16, 64))]
 KERNEL_CASES = [
     (DIT_SHAPE, torch.bfloat16),
+    *((shape, torch.bfloat16) for shape in DIT_GROUP_SHAPES),
     (DIT_OOD_SHAPE, torch.bfloat16),
     (IP_TAIL_SHAPE, torch.bfloat16),
     (IP_B1_SHAPE, torch.bfloat16),
+    *((shape, torch.bfloat16) for shape in IP_GROUP_SHAPES),
     (IP_B64_SHAPE, torch.bfloat16),
     (IP_DIT_SHAPE, torch.bfloat16),
     ((2, 1024, 6, 64), torch.float32),
     ((1, 1024, 3, 128), torch.bfloat16),
     *TP_CASES,
+    *TP_CLASSIFY_CASES,
     *RAGGED_CASES,
 ]
 BWD_CASES = [
@@ -648,6 +689,7 @@ def phase_entry_point(fa, chexpert, config_cls, workdir):
     for b, ms in ((16, ms16), (1, ms1)):
         busy, _, _ = profile_table(f"[5 entry] classify B={b}", lambda: engine.classify(images[:b]))
         print(f"[5 entry] classify B={b}: device busy {busy:.2f} of {ms:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / ms):.1f}%")
+    row_bytes(engine, images, "[5 entry]")
     return launches
 
 
@@ -910,8 +952,6 @@ def numpy_plotter(saved):
 
 
 def phase_unet_classify(fa, cifar, config_cls, workdir):
-    from diffusion_classifier_tpu_torch.diffusion.classify import auto_eval_group
-
     # one val batch through the entry point (the synthetic set has two)
     cfg = dict(CIFAR_CONFIG, evaluation_batches=0, project_root=workdir, experiment_dir="cifar10")
     config = config_cls.from_dict(dict(cfg))
@@ -925,6 +965,7 @@ def phase_unet_classify(fa, cifar, config_cls, workdir):
     calls = {}
     hook = count_forwards(calls)
     try:
+        free = before_run()
         reset_counts(fa)
         metric_output, preds, _ = inference_torch.main([])
         torch.cuda.synchronize()
@@ -933,7 +974,8 @@ def phase_unet_classify(fa, cifar, config_cls, workdir):
         hook.remove()
     b, c, evals = config.batch_size, config.classes, config.evaluation_per_stage[0]
     n_batches = config.evaluation_batches + 1
-    group = auto_eval_group(evals, b, c, img_elems=32 * 32 * 3)
+    peak_gb = peak_memory("[11 unet classify] inference_torch.main()")
+    group = auto_group(calls, b, evals, c, 32 * 32 * 3, free, "[11 unet classify]")
     chunk = config.classify_class_chunk
     chunk = chunk if chunk >= 0 else (1 if b >= 16 else 0)
     cc = chunk if chunk and c % chunk == 0 else c
@@ -958,20 +1000,28 @@ def phase_unet_classify(fa, cifar, config_cls, workdir):
     print(f"[11 unet classify] classify B=1 latency: {ms1:.2f} ms")
     busy, cats, _ = profile_table("[11 unet classify] classify B=1", lambda: engine.classify(images[:1]))
     print(f"[11 unet classify] classify B=1: device busy {busy:.2f} of {ms1:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / ms1):.1f}%; flash forward {cats['flash forward']:.2f} ms ({100 * cats['flash forward'] / busy:.1f}%)")
-    # the split: one encode on B and one tail on B (1 class a chunk), as the call
-    # runs them; the B=64 call's device time is their sum (a profile of the
-    # whole call's ~94,000 kernels costs the run ~30 s and gave the same)
-    z = torch.rand((b, 32, 32, 3), generator=torch.Generator().manual_seed(8)).cuda() * 2 - 1
-    lg = torch.zeros((b,), device="cuda")
-    labels = torch.zeros((b,), dtype=torch.long, device="cuda")
+    # the split: one encode on G·B rows and one tail on G·B·cc (1 class a
+    # chunk), as the call runs them; the B=64 call's device time is their
+    # sum (a profile of the whole call's kernels costs the run seconds and
+    # gave the same)
+    rows = group * b
+    z = torch.rand((rows, 32, 32, 3), generator=torch.Generator().manual_seed(8)).cuda() * 2 - 1
+    lg = torch.zeros((rows,), device="cuda")
+    labels = torch.zeros((rows * cc,), dtype=torch.long, device="cuda")
     with torch.no_grad():
         state = engine._encode(z, lg)
-        enc_ms, enc, _ = profile_table(f"[11 unet classify] one encode B={b}", lambda: engine._encode(z, lg))
-        tail_ms, tail, _ = profile_table(f"[11 unet classify] one tail B={b}", lambda: engine._tail(state, labels))
+        if cc > 1:
+            from torch.utils._pytree import tree_map
+
+            state = tree_map(lambda t: t.repeat_interleave(cc, dim=0), state)
+        enc_ms, enc, _ = profile_table(f"[11 unet classify] one encode of {rows} rows", lambda: engine._encode(z, lg))
+        tail_ms, tail, _ = profile_table(f"[11 unet classify] one tail of {rows * cc} rows", lambda: engine._tail(state, labels))
     n_enc, n_tail = want[("encode", group * b)] // n_batches, want[("tail", group * b * cc)] // n_batches
     busy = n_enc * enc_ms + n_tail * tail_ms
     print(f"[11 unet classify] B={b} split: {n_enc} encodes x {enc_ms:.3f} ms = {n_enc * enc_ms:.2f} ms, {n_tail} tails x {tail_ms:.3f} ms = {n_tail * tail_ms:.2f} ms device time; flash forward {tail['flash forward']:.3f} ms a tail ({100 * tail['flash forward'] / tail_ms:.1f}%), {enc['flash forward']:.3f} ms an encode; classify B={b}: device busy {busy:.2f} of {ms64:.2f} ms median wall, idle ~{100 * max(0.0, 1 - busy / ms64):.1f}%")
-    return launches, {"images_per_s_b64": b * 1e3 / ms64, "latency_ms_b1": ms1}
+    per_elem = row_bytes(engine, images, "[11 unet classify]")
+    return launches, {"images_per_s_b64": b * 1e3 / ms64, "latency_ms_b1": ms1, "group": group,
+                      "peak_gb": peak_gb, "row_bytes_per_elem": per_elem}
 
 
 def phase_sampling(fa, cifar, chexpert, config_cls, workdir):
@@ -1460,9 +1510,12 @@ def kernel_shapes(fa):
 
 def check_covered(fa, seen, tag):
     """Fails if a path launched a kernel at a shape that no kernel check held against its plain version."""
-    checked = {
-        fa.FLASH_FWD.name: set(KERNEL_CASES) | {(IP_SHAPE, torch.bfloat16)},
-        fa.FLASH_BWD.name: set(BWD_CASES) | {(IP_SHAPE, torch.bfloat16)},
+    dtypes = (torch.bfloat16, torch.float32)
+    checked = {  # phases 3, 9 and 22; phases 6, 13 and 22
+        fa.FLASH_FWD.name: set(KERNEL_CASES) | {(IP_SHAPE, torch.bfloat16)}
+        | {(shape, dt) for shape in UNET_SHAPES for dt in dtypes},
+        fa.FLASH_BWD.name: set(BWD_CASES) | {(IP_SHAPE, torch.bfloat16)}
+        | {(shape, dt) for shape in UNET_BWD_SHAPES for dt in dtypes},
     }
     for name, shapes in seen.items():
         print(f"{tag} {name} launched at " + ", ".join(f"{s} {str(d)[6:]}" for s, d in sorted(shapes, key=str)))
@@ -1508,6 +1561,79 @@ def released(tag, limit_gb=0.5):
         live_cuda_report()
     check(held <= limit_gb, f"{tag}: {held:.3f} GB still allocated from earlier phases")
     return held
+
+
+def row_bytes(engine, images, tag):
+    """Card bytes a classify megabatch row (image × class × evaluation) takes, per image element.
+
+    The engine's own classify path (its prefix split and class chunk) at 2
+    evaluations as one group and as two: the peak memory above what was
+    allocated before, its difference over the ``B·K`` rows the second
+    group adds. Fails above ``ROW_BYTES_PER_ELEM``, the constant the auto
+    group size (``card_eval_group``) budgets with.
+    """
+    from diffusion_classifier_tpu_torch.diffusion.classify import ROW_BYTES_PER_ELEM, TorchDraws, make_classifier
+
+    cfg = engine.config
+    x = engine._images(images)
+    b, k, elems = x.shape[0], cfg.classes, math.prod(x.shape[1:])
+    labels = torch.zeros((b,), dtype=torch.long, device="cuda")
+    peaks = []
+    for group in (1, 2):
+        fn = make_classifier(
+            lambda z, lg, lab: engine.state.ema_model(z, lg, lab), engine.schedule_fn,
+            pred_param=cfg.pred_param, num_classes=k, n_stages=1, evaluation_per_stage=(2,),
+            n_keep_per_stage=(1,), eval_group=group, class_chunk=cfg.classify_class_chunk,
+            encode_fn=engine._encode, tail_fn=engine._tail,
+        )
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(x, labels, TorchDraws(torch.Generator(device="cuda").manual_seed(0)))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    per_elem = (peaks[1] - peaks[0]) / (b * k) / elems
+    print(f"{tag} classify megabatch memory at B={b}, K={k}, {elems} elements an image: peak above the resident {peaks[0] / 1e9:.3f} GB at G=1, {peaks[1] / 1e9:.3f} GB at G=2 -> {per_elem:.1f} bytes a row per image element (ROW_BYTES_PER_ELEM {ROW_BYTES_PER_ELEM})")
+    check(per_elem <= ROW_BYTES_PER_ELEM, f"{tag}: {per_elem:.1f} bytes a row per element, above ROW_BYTES_PER_ELEM {ROW_BYTES_PER_ELEM}: the auto group size would overfill the card")
+    return per_elem
+
+
+def auto_group(calls, b, evals, k, elems, free_before, tag):
+    """The group size the classifier chose on the card, read from its encode forwards' rows.
+
+    Held to ``card_eval_group`` between the free memory before the run and
+    that less 4 GB (the engine's weights and the allocator's blocks come in
+    between); printed beside the JAX package's budget.
+    """
+    from diffusion_classifier_tpu_torch.diffusion.classify import auto_eval_group, card_eval_group
+
+    groups = {rows // b for (mode, rows) in calls if mode == "encode"}
+    check(len(groups) == 1, f"{tag}: encode forwards of {sorted(groups)} groups")
+    (group,) = groups
+    hi = card_eval_group(evals, b, k, elems, free_before)
+    lo = card_eval_group(evals, b, k, elems, max(0, free_before - 4e9))
+    print(f"{tag} auto group size G={group}: the card's rule gives {lo}-{hi} at {free_before / 1e9:.2f} GB free; the JAX package's budget gives {auto_eval_group(evals, b, k, img_elems=elems)}")
+    check(lo <= group <= hi and evals % group == 0, f"{tag}: G={group} outside the card's rule {lo}-{hi}")
+    return group
+
+
+def before_run():
+    """Frees what the card caches, zeroes the peak memory; returns the free bytes (``mem_get_info``)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.mem_get_info()[0]
+
+
+def peak_memory(tag):
+    """Prints the peak memory since the last reset against the card's total; returns it in GB."""
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"{tag} peak memory {peak:.3f} GB of the card's {total:.2f} GB")
+    return peak
 
 
 def phase_cx_unet_forward(fa, cx_unet, config_cls):
@@ -1612,8 +1738,6 @@ def phase_cx_unet_train(fa, cx_unet, config_cls, trees, workdir):
 
 def phase_cx_unet_classify(fa, cx_unet, config_cls, trees, workdir):
     """``inference_torch.py`` on the trained checkpoint (mistakes file), classify B=16 and B=1, then ``ood_torch.py`` on the three OOD sets."""
-    from diffusion_classifier_tpu_torch.diffusion.classify import auto_eval_group
-
     cfg = dict(CX_CONFIG, encoder_type="nn", data_path=trees["chexpert"], project_root=workdir,
                experiment_dir="chexpert-unet")
     config = config_cls.from_dict(dict(cfg))
@@ -1621,6 +1745,7 @@ def phase_cx_unet_classify(fa, cx_unet, config_cls, trees, workdir):
     forwards = {}
     hook = count_forwards(forwards)
     try:
+        free = before_run()
         reset_counts(fa)
         with plain_attention_calls() as calls:
             metric_output, preds, batches = load_script("inference_torch", "chexpert-unet").main([])
@@ -1628,7 +1753,8 @@ def phase_cx_unet_classify(fa, cx_unet, config_cls, trees, workdir):
     finally:
         hook.remove()
     b, evals = config.batch_size, config.evaluation_per_stage[0]
-    group = auto_eval_group(evals, b, 2, img_elems=128 * 128 * 12)
+    peak_gb = peak_memory("[18 cx-unet classify] inference_torch.main()")
+    group = auto_group(forwards, b, evals, 2, 128 * 128 * 12, free, "[18 cx-unet classify]")
     want = {("encode", group * b): evals // group, ("tail", group * b): evals // group * 2}
     p = torch.cat(preds)
     labels = torch.cat([torch.as_tensor(x["prompt"]) for x in batches])
@@ -1660,7 +1786,8 @@ def phase_cx_unet_classify(fa, cx_unet, config_cls, trees, workdir):
         enc_ms, _, enc_kernels = profile_table(f"[18 cx-unet classify] one encode B={b}", lambda: engine._encode(z, lg))
         tail_ms, _, tail_kernels = profile_table(f"[18 cx-unet classify] one tail B={b}", lambda: engine._tail(state, torch.zeros((b,), dtype=torch.long, device="cuda")))
     print(f"[18 cx-unet classify] B={b}: an encode {enc_ms:.3f} ms in {enc_kernels} kernels, a tail {tail_ms:.3f} ms in {tail_kernels} kernels (device time)")
-    rates.update(encode_ms=enc_ms, encode_kernels=enc_kernels, tail_ms=tail_ms, tail_kernels=tail_kernels)
+    rates.update(encode_ms=enc_ms, encode_kernels=enc_kernels, tail_ms=tail_ms, tail_kernels=tail_kernels,
+                 group=group, peak_gb=peak_gb, row_bytes_per_elem=row_bytes(engine, images, "[18 cx-unet classify]"))
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2090,8 +2217,6 @@ def phase_ipmsa_unet_classify(fa, ip, config_cls, tree, workdir):
     """``inference_torch.py`` on the trained checkpoint (B=8, 4 evaluations x 2 classes), classify B=8 and B=1, then ``explain_torch.py``."""
     import numpy as np
 
-    from diffusion_classifier_tpu_torch.diffusion.classify import auto_eval_group
-
     cfg = dict(IP_CONFIG, encoder_type="nn", **ipmsa_experiment(tree, workdir, "ipmsa-unet"))
     os.environ["DATA_PATH"] = tree["roots"]["lz4"]
     os.environ["INFERENCE_CONFIG"] = json.dumps(cfg)
@@ -2099,6 +2224,7 @@ def phase_ipmsa_unet_classify(fa, ip, config_cls, tree, workdir):
     forwards = {}
     hook = count_forwards(forwards)
     try:
+        free = before_run()
         reset_counts(fa)
         with plain_attention_calls() as calls:
             metric_output, preds, batches = load_script("inference_torch", "ipmsa").main([])
@@ -2106,7 +2232,8 @@ def phase_ipmsa_unet_classify(fa, ip, config_cls, tree, workdir):
     finally:
         hook.remove()
     b, evals = config.batch_size, config.evaluation_per_stage[0]
-    group = auto_eval_group(evals, b, 2, img_elems=128 * 128 * 40)
+    peak_gb = peak_memory("[22 ipmsa unet classify] inference_torch.main()")
+    group = auto_group(forwards, b, evals, 2, 128 * 128 * 40, free, "[22 ipmsa unet classify]")
     chunk = 1 if b >= 16 else 2  # class_chunk -1: one class a tail from B=16, both below
     tails = evals // group * 2 // chunk
     want = {("encode", group * b): evals // group, ("tail", group * b * chunk): tails}
@@ -2128,6 +2255,8 @@ def phase_ipmsa_unet_classify(fa, ip, config_cls, tree, workdir):
     busy, _, kernels = profile_table(f"[22 ipmsa unet classify] classify B={b}", lambda: engine.classify(images))
     rates["b8"] = {"device_ms": busy, "kernels": kernels, "idle_percent": 100 * max(0.0, 1 - busy / ms8)}
     print(f"[22 ipmsa unet classify] classify B={b} ({evals} evals x 2 classes, shared prefix): {ms8:.2f} ms median wall -> {b * 1e3 / ms8:.2f} images/s, device busy {busy:.2f} ms in {kernels} kernels, idle ~{rates['b8']['idle_percent']:.1f}%; B=1 {ms1:.2f} ms")
+    rates.update(group=group, peak_gb=peak_gb,
+                 row_bytes_per_elem=row_bytes(engine, images, "[22 ipmsa unet classify]"))
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2690,6 +2819,165 @@ def phase_mp_preempt(fa, workdir):
                                                sum(r["launches"][1] for r in logs + resumed))}
 
 
+# --- the text-conditioned ('t5') UNet (phase 30)
+
+# a [classes + 1, S, D] class table as a frozen T5 encoder gives it: t5-base's
+# width 768 (the config's default t5_path) and the config's t5_max_length of
+# 8 tokens; random from T5_SEED (the repository holds no T5 weights)
+T5_TABLE = (11, 8, 768)
+T5_SEED = 30
+T5_SAMPLE_STEPS = 32  # the config's 128 cut to 32, to keep the script within its time
+# the flagship's transformer blocks a tail: 2 + 2 down (levels 2, 3), 1 in
+# the mid block, 3 + 3 up; each runs one self-attention (the kernel) and one
+# cross-attention over the table's 8 tokens (S_kv != S_q: the plain route)
+UNET_BLOCKS_A_TAIL = 11
+
+
+def trace_kernels(path):
+    """``(CUDA kernel events, their device ms)`` of a Chrome trace that ``profiling.trace`` wrote."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    return events, sum(e.get("dur", 0) for e in events) / 1e3
+
+
+def phase_t5(fa, cifar, config_cls, workdir):
+    """Phase 30: the flagship UNet conditioned on a T5 class table, through the CIFAR-10 entry points."""
+    import numpy as np
+
+    from diffusion_classifier_tpu_torch.utils import profiling
+
+    tag = "[30 t5]"
+    table = np.random.default_rng(T5_SEED).standard_normal(T5_TABLE).astype(np.float32)
+    path = os.path.join(workdir, "t5_table.npy")
+    np.save(path, table)
+    cfg = dict(CIFAR_TRAINING_CONFIG, encoder_type="t5", t5_table_path=path, project_root=workdir,
+               experiment_dir="cifar10-t5")
+    config = config_cls.from_dict(dict(cfg))
+    with torch.device("meta"):
+        backbone = cifar.build_backbone(config)
+    n_params = sum(p.numel() for p in backbone.parameters())
+    proj = tuple(backbone.encoder_hid_proj.weight.shape)
+    print(f"{tag} the flagship UNet built for a {list(T5_TABLE)} table: {n_params} parameters, context {backbone.context_tokens} x {backbone.context_dim}, encoder_hid_proj {proj}")
+    check((backbone.context_tokens, backbone.context_dim) == T5_TABLE[1:] and proj == (128, 768),
+          f"{tag} the backbone's context {backbone.context_tokens} x {backbone.context_dim}, projection {proj}")
+    del backbone
+    out = {}
+
+    with kernel_shapes(fa) as seen:
+        # training: train_torch.py for one epoch (8 steps at B=64), its eval included
+        os.environ["TRAINING_CONFIG"] = json.dumps(cfg)
+        saved = []
+        reset_counts(fa)
+        engine, seconds = profiling.timed(load_script("train_torch", "cifar10").main, [],
+                                          plot_function=numpy_plotter(saved))
+        fwd, bwd = fa.FLASH_FWD.launches, fa.FLASH_BWD.launches
+        check_no_copies(fa, f"{tag} train")
+        steps = 512 // config.batch_size
+        with open(os.path.join(config.experiment_path, "track.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        losses = [e["value"] for e in events if e.get("name") == "loss" and e.get("step") is not None]
+        print(f"{tag} train_torch.main(): {len(losses)} steps at B={config.batch_size} in {seconds:.1f} s (eval and checkpoint included); launches fwd {fwd} bwd {bwd}; loss first {losses[0]:.5f} last {losses[-1]:.5f}")
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"{tag} losses {losses}")
+        check(bwd == UNET_BLOCKS_A_TAIL * steps, f"{tag} {bwd} backward launches for {steps} steps")
+        check(fwd > UNET_BLOCKS_A_TAIL * steps and len(saved) == 1, f"{tag} {fwd} forward launches, plots {saved}")
+        batch = next(iter(cifar.build_data(config).get_train_loader()))
+        timer = profiling.StepTimer()
+        for i in range(10):
+            if i < 2:  # warm-up
+                engine.train_step(batch)
+                continue
+            with timer.measure():
+                engine.train_step(batch)
+        step = timer.summary()
+        print(f"{tag} train step B={config.batch_size} (StepTimer, {step['steps']} warm steps): p50 {1e3 * step['p50_s']:.2f} ms, mean {1e3 * step['mean_s']:.2f} ms, p95 {1e3 * step['p95_s']:.2f} ms -> {config.batch_size / step['p50_s']:.2f} images/s")
+        out["train"] = {"launches": (fwd, bwd), "step": step}
+        del engine
+
+        # classify: inference_torch.py on the trained checkpoint at the bench's cut
+        icfg = dict(cfg, use_comet=False, evaluation_batches=0)
+        os.environ["INFERENCE_CONFIG"] = json.dumps(icfg)
+        calls = {}
+        hook = count_forwards(calls)
+        try:
+            free = before_run()
+            reset_counts(fa)
+            with plain_attention_calls() as plain:
+                metric_output, preds, _ = load_script("inference_torch", "cifar10").main([])
+                torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        launches = fa.FLASH_FWD.launches
+        peak_gb = peak_memory(f"{tag} inference_torch.main()")
+        b, c, evals = config.batch_size, config.classes, config.evaluation_per_stage[0]
+        group = auto_group(calls, b, evals, c, 32 * 32 * 3, free, tag)
+        tails = evals // group * c  # one class a tail at B=64
+        want = {("encode", group * b): evals // group, ("tail", group * b): tails}
+        print(f"{tag} inference_torch.main(): {metric_output}; forwards {calls} (expected {want}); flash launches {launches} ({UNET_BLOCKS_A_TAIL} a tail), plain-route calls {plain[0]} ({UNET_BLOCKS_A_TAIL} cross-attentions a tail)")
+        check(calls == want, f"{tag} forwards {calls}, expected {want}")
+        check(launches == UNET_BLOCKS_A_TAIL * tails, f"{tag} {launches} flash launches for {tails} tails")
+        check(plain[0] == UNET_BLOCKS_A_TAIL * tails, f"{tag} {plain[0]} plain-route calls for {tails} tails")
+        check(fa.FLASH_BWD.launches == 0, f"{tag} classification launched the backward")
+        check_no_copies(fa, f"{tag} classify")
+        check(len(preds) == 1 and len(metric_output) == 1, f"{tag} {len(preds)} batches, {metric_output}")
+        check(tuple(preds[0].shape) == (b,) and bool(((preds[0] >= 0) & (preds[0] < c)).all()),
+              f"{tag} predictions {preds[0].tolist()}")
+        out["classify"] = {"launches": launches, "plain_calls": plain[0], "group": group, "peak_gb": peak_gb}
+
+        engine = cifar.build_engine(config_cls.from_dict(dict(icfg)))
+        engine.init_params()
+        engine.load_checkpoint(os.path.join(config.experiment_path, "checkpoints"), train_state=False)
+        context = engine.encode_text_prompt(np.arange(c + 1))
+        check(tuple(context.shape) == T5_TABLE and context.dtype == torch.bfloat16
+              and torch.equal(context.cpu(), torch.from_numpy(table).to(torch.bfloat16)),
+              f"{tag} encode_text_prompt gave {tuple(context.shape)} {context.dtype}")
+        images = (torch.rand((b, 32, 32, 3), generator=torch.Generator().manual_seed(31)) * 2 - 1).numpy()
+        engine.classify(images)  # warm
+        _, seconds = profiling.timed(engine.classify, images)
+        timers = {b: profiling.StepTimer(), 1: profiling.StepTimer()}
+        for rows, reps in ((b, 3), (1, 5)):
+            for _ in range(reps):
+                with timers[rows].measure():
+                    engine.classify(images[:rows])
+        ms = {rows: 1e3 * t.summary()["p50_s"] for rows, t in timers.items()}
+        with profiling.trace(os.path.join(workdir, "t5-trace")) as prof:
+            engine.classify(images)
+        kernels, busy = trace_kernels(prof.trace_path)
+        flash = sum("flash_fwd" in e["name"] for e in kernels)
+        print(f"{tag} classify B={b} ({evals} evals x {c} classes, G={group}): profiling.timed {1e3 * seconds:.2f} ms; StepTimer p50 {ms[b]:.2f} ms -> {b * 1e3 / ms[b]:.2f} images/s; B=1 p50 {ms[1]:.2f} ms; profiling.trace: {len(kernels)} CUDA kernel events, {flash} flash forward, device busy {busy:.2f} of {ms[b]:.2f} ms, idle ~{100 * max(0.0, 1 - busy / ms[b]):.1f}%")
+        check(kernels, f"{tag} the trace holds no CUDA kernel event")
+        check(flash == UNET_BLOCKS_A_TAIL * tails, f"{tag} {flash} flash kernels in the trace for {tails} tails")
+        out["classify"].update(images_per_s_b64=b * 1e3 / ms[b], latency_ms_b1=ms[1], timed_ms=1e3 * seconds,
+                               trace_kernels=len(kernels), device_ms=busy,
+                               row_bytes_per_elem=row_bytes(engine, images, tag))
+        del engine
+
+        # CFG sampling of one batch of 32 through inference_torch.py
+        os.environ["INFERENCE_CONFIG"] = json.dumps(
+            dict(icfg, classification=False, batch_size=32, sampling_steps=T5_SAMPLE_STEPS))
+        calls, saved = {}, []
+        hook = count_forwards(calls)
+        try:
+            reset_counts(fa)
+            with plain_attention_calls() as plain:
+                (samples, _), seconds = profiling.timed(
+                    load_script("inference_torch", "cifar10").main, [], plot_function=numpy_plotter(saved))
+        finally:
+            hook.remove()
+        n = T5_SAMPLE_STEPS + 1  # the noisy steps and the final one
+        want = {("encode", 32): n, ("tail", 64): n}
+        s = samples[0]
+        print(f"{tag} sampling B=32, {T5_SAMPLE_STEPS} steps (CFG with the table's null row): {seconds:.2f} s with the engine and checkpoint; samples {tuple(s.shape)} in [{s.min().item():.4f}, {s.max().item():.4f}]; forwards {calls}; flash launches {fa.FLASH_FWD.launches}, plain-route calls {plain[0]}")
+        check(calls == want, f"{tag} sampling forwards {calls}, expected {want}")
+        check(fa.FLASH_FWD.launches == UNET_BLOCKS_A_TAIL * n and plain[0] == UNET_BLOCKS_A_TAIL * n,
+              f"{tag} sampling launches {fa.FLASH_FWD.launches}, plain calls {plain[0]}")
+        check(s.shape == (32, 32, 32, 3) and bool(torch.isfinite(s).all()) and s.abs().max().item() <= 1.0,
+              f"{tag} samples {tuple(s.shape)}")
+        check(len(saved) == 1, f"{tag} the plot function did not run")
+        out["sample"] = {"launches": fa.FLASH_FWD.launches, "seconds": seconds}
+    check_covered(fa, seen, tag)
+    return out
+
+
 def worker_main(kind, workdir):
     """``chip_smoke.py --worker kind workdir``: one rank of phases 25-27 and 29."""
     sys.path.insert(0, REPO)
@@ -2795,6 +3083,8 @@ def main() -> int:
         mp_entry = phase_mp_entry(fa, ExperimentConfig, trees, ip_tree, workdir)
         held["29 preempt"] = released("[29 preempt]")
         mp_preempt = phase_mp_preempt(fa, workdir)
+        held["30 t5"] = released("[30 t5]")
+        t5 = phase_t5(fa, cifar, ExperimentConfig, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
@@ -2814,6 +3104,8 @@ def main() -> int:
             "ddp_world1": mp_dit["launches"]["ddp_world1"][0], "tp_unet_world2": mp_tp["launches"]["tp"][0],
             "torchrun_dit_train": mp_entry["dit_train"][0], "torchrun_dit_classify": mp_entry["dit_classify"][0],
             "preempt_world2": mp_preempt["launches"][0],
+            "t5_train": t5["train"]["launches"][0], "t5_classify": t5["classify"]["launches"],
+            "t5_sample": t5["sample"]["launches"],
         },
         "flash_attn_bwd": {
             "classify": 0, "train": train_bwd, "unet_train": unet_train_bwd,
@@ -2823,6 +3115,7 @@ def main() -> int:
             "ddp_world1": mp_dit["launches"]["ddp_world1"][1], "tp_unet_world2": mp_tp["launches"]["tp"][1],
             "torchrun_dit_train": mp_entry["dit_train"][1], "torchrun_dit_classify": mp_entry["dit_classify"][1],
             "preempt_world2": mp_preempt["launches"][1],
+            "t5_train": t5["train"]["launches"][1],
         },
     }
     print(json.dumps({"paths": {
@@ -2842,6 +3135,8 @@ def main() -> int:
             **{k: v for k, v in mp_tp.items() if k != "launches"},
             "preempt_saved_at_step": mp_preempt["saved_at"],
         },
+        "t5_unet": {"train_step": t5["train"]["step"], "classify": t5["classify"],
+                    "sample_seconds": t5["sample"]["seconds"]},
         "allocated_gb_before_phase": held,
     }}))
     print(json.dumps({"kernels": [

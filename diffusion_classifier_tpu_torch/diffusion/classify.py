@@ -1,6 +1,6 @@
 """Per-class ELBO classification — port of ``diffusion/classify.py``.
 
-Same protocol and the same megabatch schedule as the JAX module:
+Same protocol as the JAX module, and on the CPU the same megabatch schedule:
 
 - One shared ``(t, ε)`` per (evaluation, batch element): every candidate
   class sees identical noise, so their errors are comparable.
@@ -19,11 +19,16 @@ Same protocol and the same megabatch schedule as the JAX module:
   labels' ``(G, B, cc)`` order) and only the conditioned tail runs on the
   ``[G·B·cc]`` megabatch.
 
+The group size ``G`` of an automatic schedule comes, on a CUDA device, from
+the card's free memory (:func:`card_eval_group`); on the CPU, or with an
+explicit ``megabatch_target``, it is the JAX package's
+(:func:`auto_eval_group`).
+
 Under several data ranks (``data_rows=(index, count)``) ``x`` holds this
-rank's contiguous rows of the global batch. The draws and the group size
-``G`` are the global batch's, as in the JAX program over a sharded batch:
-each rank draws the global shapes and keeps its rows, so the same seed
-predicts the same classes at any world size.
+rank's contiguous rows of the global batch. The draws are the global
+batch's, as in the JAX program over a sharded batch: each rank draws the
+global shapes and keeps its rows, so the same seed and the same ``G``
+predict the same classes at any world size.
 
 The JAX scans become Python loops, so ``scan_unroll`` (an XLA schedule knob)
 is accepted and ignored. The random draws come from a :class:`Draws`
@@ -36,19 +41,39 @@ group ``t [G, B]`` and ``ε [G, *x.shape]``.
 from __future__ import annotations
 
 import math
-from typing import Callable, Protocol, Sequence
+from typing import Callable, Optional, Protocol, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
 from .process import bcast_right, pred_to_eps
 from .schedule import alpha_sigma
 
-__all__ = ["Draws", "TorchDraws", "auto_eval_group", "make_classifier"]
+__all__ = ["Draws", "TorchDraws", "auto_eval_group", "card_eval_group", "make_classifier"]
 
 
 #: elements of one CIFAR image — the unit ``megabatch_target`` is calibrated in
 _REF_IMG_ELEMS = 32 * 32 * 3
+#: bytes of card memory a megabatch row (one image × candidate class ×
+#: evaluation) takes in classify, per element of the image. Measured on an
+#: H100 by ``chip_smoke.py`` (``row_bytes``, which fails if a denoiser needs
+#: more): 355 for the CheXpert UNet, the largest of the repository's
+#: denoisers (126 the IPMSA UNet, 94 the CIFAR UNet, 35 the DiT-b4);
+#: rounded up to 512
+ROW_BYTES_PER_ELEM = 512
+#: the share of the card's free memory (``torch.cuda.mem_get_info``) that the
+#: auto group size lets a classify megabatch fill
+FREE_MEMORY_SHARE = 0.5
+
+
+def _largest_group(n_evals: int, rows_per_eval: int, budget_rows: int) -> int:
+    """Largest divisor G of ``n_evals`` with ``rows_per_eval · G ≤ budget_rows`` (at least 1)."""
+    best = 1
+    for g in range(1, n_evals + 1):
+        if n_evals % g == 0 and rows_per_eval * g <= budget_rows:
+            best = g
+    return best
 
 
 def auto_eval_group(
@@ -58,18 +83,25 @@ def auto_eval_group(
     target: int = 512,
     img_elems: int = _REF_IMG_ELEMS,
 ) -> int:
-    """Largest divisor G of ``n_evals`` with megabatch ``B·K·G ≤ budget``.
+    """The JAX package's group size: the largest divisor G of ``n_evals`` with ``B·K·G ≤ budget``.
 
-    Unchanged from the JAX package (its budget was sized on a 16 GB TPU),
-    because the draw layout depends on G: re-deriving it for the H100's
-    80 GB changes the draws, and is later work.
+    ``target`` is in CIFAR-equivalent images (32·32·3 elements), scaled
+    down by the image's element count. The classifier takes it on the CPU
+    and whenever ``megabatch_target`` is given, so those schedules, and the
+    draws laid out by them, are the JAX package's.
     """
     budget = max(1, (target * _REF_IMG_ELEMS) // max(img_elems, 1))
-    best = 1
-    for g in range(1, n_evals + 1):
-        if n_evals % g == 0 and batch * k_classes * g <= budget:
-            best = g
-    return best
+    return _largest_group(n_evals, batch * k_classes, budget)
+
+
+def card_eval_group(n_evals: int, batch: int, k_classes: int, img_elems: int, free_bytes: int) -> int:
+    """The group size on the card: the largest divisor G of ``n_evals`` whose megabatch fits.
+
+    A megabatch of ``B·K·G`` rows takes ``ROW_BYTES_PER_ELEM · img_elems``
+    bytes a row; it must fit in ``FREE_MEMORY_SHARE · free_bytes``.
+    """
+    row_bytes = ROW_BYTES_PER_ELEM * max(img_elems, 1)
+    return _largest_group(n_evals, batch * k_classes, int(FREE_MEMORY_SHARE * free_bytes) // row_bytes)
 
 
 class Draws(Protocol):
@@ -121,6 +153,7 @@ def make_classifier(
     eval_group: int = 0,
     class_chunk: int = 0,
     scan_unroll=1,
+    megabatch_target: Optional[int] = None,
     encode_fn: Callable = None,
     tail_fn: Callable = None,
     trace: bool = False,
@@ -136,6 +169,14 @@ def make_classifier(
     ``trace=True`` it also returns, per stage, ``{"mean", "cand"}``.
     ``scan_unroll`` is ignored (see the module docstring). ``data_rows``
     is ``(index, count)`` on the data axis.
+
+    ``eval_group=0`` picks the group size ``G`` per stage: on a CUDA device
+    from the card's free memory (:func:`card_eval_group`; several processes
+    take their smallest), on the CPU or with ``megabatch_target`` as the
+    JAX package does (:func:`auto_eval_group`). ``G`` is a schedule, but
+    the draws are requested per group, so on the card the same seed gives
+    the same predictions only where the same ``G`` results: give
+    ``eval_group`` for a schedule that never depends on free memory.
     """
     del scan_unroll
     data_index, data_count = data_rows
@@ -226,6 +267,20 @@ def make_classifier(
             count = count + scored.sum(dim=0, dtype=torch.int32)
         return err_sum, count
 
+    def _auto_group(n_evals, b, gb, k, x):
+        img_elems = math.prod(x.shape[1:])
+        if megabatch_target is not None or x.device.type != "cuda":
+            return auto_eval_group(n_evals, gb, k, megabatch_target or 512, img_elems)
+        free, _ = torch.cuda.mem_get_info(x.device)
+        group = card_eval_group(n_evals, b, k, img_elems, free)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            # every rank must draw the same global shapes: the smallest G
+            on = x.device if dist.get_backend() == "nccl" else "cpu"
+            g = torch.tensor([group], device=on)
+            dist.all_reduce(g, op=dist.ReduceOp.MIN)
+            group = int(g.item())
+        return group
+
     @torch.no_grad()
     def classify(x: torch.Tensor, labels: torch.Tensor, draws: Draws):
         b, dev = x.shape[0], x.device
@@ -249,9 +304,7 @@ def make_classifier(
         stages = []
         for i in range(n_stages):
             n_evals = ev[i + 1] - ev[i]
-            group = eval_group or auto_eval_group(
-                n_evals, gb, cand.shape[1], img_elems=math.prod(x.shape[1:])
-            )
+            group = eval_group or _auto_group(n_evals, b, gb, cand.shape[1], x)
             identity = (not fast) and i == 0 and cand.shape[1] == num_classes
             err_sum, count = _score_stage(
                 x, cand, err_sum, count, draws, i, n_evals, group, identity, rows

@@ -43,6 +43,19 @@ is a straight copy for the first ``ema_warmup`` updates. A backbone with a
 prefix split (the UNet) shares its condition-free prefix across the
 candidate classes in classify and across the CFG pair in sampling.
 
+``encoder_type='t5'``: the labels pick rows of a frozen ``[C+1, S, D]``
+table of class-name embeddings (:func:`t5_class_table`: ``np.load`` of
+``config.t5_table_path``, else computed once by a T5 encoder from
+``t5_path``, ``t5_class_names`` and ``t5_max_length``). The backbone must
+be built for that context, ``context_tokens=S`` and ``context_dim=D``
+(``experiments/cifar10.py::build_backbone`` reads both from the config);
+the engine checks it. :meth:`encode_text_prompt` gives the context of a
+batch of labels.
+
+``config.compilation_cache_dir`` is accepted and ignored: there is no XLA
+compile to cache, and the CUDA kernels are cached by the hash of their
+sources under ``build/`` (``ops/flash_attention.py``).
+
 The device is explicit (``device=``, default ``"cuda"``): nothing moves to
 the CPU because no GPU was found. The classifier's, the sampler's and the
 train step's draws come from one ``torch.Generator`` on that device seeded
@@ -55,6 +68,7 @@ inject both.
 from __future__ import annotations
 
 import copy
+import functools
 import itertools
 import os
 import signal
@@ -70,7 +84,7 @@ import torch.distributed as dist
 from ..diffusion.classify import TorchDraws, make_classifier
 from ..diffusion.sampler import TorchSampleDraws, make_sampler
 from ..diffusion.schedule import make_schedule_fn
-from ..models.encoders import make_encoder
+from ..models.encoders import build_t5_class_table, make_encoder
 from ..models.layers import reset_parameters
 from ..ops.wavelet import haar_dwt2
 from ..parallel.mesh import PreemptionSync, is_main_process, make_mesh
@@ -81,7 +95,26 @@ from .denoiser import Denoiser, supports_prefix
 from .state import EmaConfig, init_train_state, lr_at, make_optimizer
 from .steps import TorchTrainDraws, check_finite, make_loss_fn, make_train_step
 
-__all__ = ["DiffusionClassifier"]
+__all__ = ["DiffusionClassifier", "t5_class_table"]
+
+
+def t5_class_table(config) -> np.ndarray:
+    """The ``[classes + 1, S, D]`` table of ``encoder_type='t5'`` (last row: the null condition).
+
+    ``np.load(config.t5_table_path)`` when it is set (no ``transformers``
+    needed); otherwise the T5 encoder at ``config.t5_path`` embeds
+    ``config.t5_class_names`` (default: the class ids as text), once a
+    process for the same arguments.
+    """
+    if config.t5_table_path:
+        return np.load(config.t5_table_path)
+    names = tuple(config.t5_class_names or [str(i) for i in range(config.classes)])
+    return _t5_table_from_model(names, config.t5_path, config.t5_max_length).copy()
+
+
+@functools.lru_cache(maxsize=2)
+def _t5_table_from_model(names: tuple, model_path: str, max_length: int) -> np.ndarray:
+    return build_t5_class_table(names, model_path=model_path, max_length=max_length)
 
 
 def _first_batch(dataloader, name: str):
@@ -122,11 +155,27 @@ class DiffusionClassifier:
         self.schedule_fn = make_schedule_fn(
             config.schedule, config.noise_d, config.image_size
         )
+        t5_table = None
+        if config.encoder_type == "t5":
+            want = (getattr(backbone, "context_tokens", None), getattr(backbone, "context_dim", None))
+            if None in want:
+                raise ValueError(
+                    "encoder_type='t5' gives a [B, S, D] cross-attention context; "
+                    f"{type(backbone).__name__} takes none (use a UNet)"
+                )
+            t5_table = t5_class_table(config)
+            if tuple(t5_table.shape[1:]) != want:
+                raise ValueError(
+                    f"the t5 table is [S, D] = {list(t5_table.shape[1:])} a class, but the backbone "
+                    f"was built for a context of {list(want)}: build it with context_tokens=S "
+                    f"and context_dim=D"
+                )
         encoder, self.null_token = make_encoder(
             config.encoder_type,
             num_classes=config.classes,
             embedding_dim=getattr(getattr(backbone, "config", None), "encoder_hid_dim", None),
             dtype=torch.bfloat16 if config.mixed_precision == "bf16" else torch.float32,
+            t5_table=t5_table,
         )
         self.denoiser = Denoiser(backbone, encoder)
         self.ema_cfg = EmaConfig(
@@ -305,6 +354,19 @@ class DiffusionClassifier:
             rows = slice(pl.data_index * b, (pl.data_index + 1) * b)
             u, t, eps = u[rows], t[rows], eps[rows]
         return pl.mean_over_data(self._loss_eval(x, self._labels(labels), u, t, eps))
+
+    @torch.no_grad()
+    def encode_text_prompt(self, labels) -> torch.Tensor:
+        """The condition of integer labels on the EMA parameters, on the engine's device.
+
+        ``'nn'``/``'t5'``: the context ``[B, 1|S, D]`` in the compute dtype;
+        ``'DiT'`` (no encoder): the labels as they are.
+        """
+        labels = self._labels(labels)
+        if self.denoiser.encoder is None:
+            return labels
+        self._require_state()
+        return self.state.ema_model.encoder(labels)
 
     def evaluate(
         self,

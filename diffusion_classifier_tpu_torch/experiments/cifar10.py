@@ -5,7 +5,12 @@ package's flagship): blocks (128, 128, 256, 512), two resnets a level,
 plain down levels 0-1 (the condition-free prefix) and cross-attention at
 levels 2-3 and the mid block (8 heads: 64 tokens × D=32 at level 2, 16
 tokens × D=64 at level 3), cross-attention dim 128 over a ``'nn'`` class
-embedding of width 128 with ``text_proj``. ``data_path "synthetic"`` gives
+embedding of width 128 with ``text_proj``. With ``encoder_type 't5'`` the
+context is the T5 class table's ``[S, D]`` a class (``t5_table_path``, or
+the table a T5 encoder computes from the config's ``t5_*`` fields):
+:func:`build_backbone` reads S and D from the config through
+``engine.t5_class_table``, so ``encoder_hid_proj`` maps D to 128, as
+flax infers its input width. ``data_path "synthetic"`` gives
 the port's synthetic set (512 train, 128 val images); any other path is read
 as the ``cifar-10-batches-py`` pickles (:mod:`..data.cifar`).
 """
@@ -17,6 +22,7 @@ import torch
 from ..data.cifar import CIFAR10DataLoader
 from ..data.synthetic import SyntheticDataLoader
 from ..engine import DiffusionClassifier
+from ..engine.diffusion_classifier import t5_class_table
 from ..models.unet import UNetCondition2D, UNetConfig
 from ..utils.config import ExperimentConfig
 
@@ -25,6 +31,10 @@ __all__ = ["build_backbone", "build_data", "build_engine"]
 
 def build_backbone(config: ExperimentConfig) -> UNetCondition2D:
     dtype = torch.bfloat16 if config.mixed_precision == "bf16" else torch.float32
+    context = {}
+    if config.encoder_type == "t5":
+        tokens, width = t5_class_table(config).shape[1:]
+        context = dict(context_tokens=tokens, context_dim=width)
     return UNetCondition2D(
         UNetConfig(
             sample_size=config.image_size,
@@ -45,6 +55,7 @@ def build_backbone(config: ExperimentConfig) -> UNetCondition2D:
             remat=config.remat,
         ),
         dtype=dtype,
+        **context,
     )
 
 
@@ -64,7 +75,7 @@ def build_data(config: ExperimentConfig):
 
 
 def build_engine(config: ExperimentConfig, device="cuda") -> DiffusionClassifier:
-    # encoder_type='nn': labels become a one-token context for the cross-attention
-    if config.encoder_type != "nn":
-        raise ValueError("cifar10 uses encoder_type='nn'")
+    # 'nn': a one-token context for the cross-attention; 't5': the table's S tokens
+    if config.encoder_type not in ("nn", "t5"):
+        raise ValueError("cifar10 uses encoder_type 'nn' or 't5'")
     return DiffusionClassifier(build_backbone(config), config, device=device)

@@ -16,9 +16,14 @@ flax tree converts leaf for leaf (``utils/convert.py``): ``conv_in``,
   (with ``conv_in`` and the time embedding) do not depend on the condition.
   ``mode='encode'`` returns ``(h, skips, temb)`` after them, ``mode='tail'``
   runs the rest from that state, and ``mode='full'`` is tail ∘ encode.
-- The cross-attention context has ``context_tokens`` tokens. The class
-  embedder gives one, and a one-token cross-attention has no ``to_q``,
-  ``to_k`` or ``norm2`` (as the flax tree, which never creates them).
+- The cross-attention context has ``context_tokens`` tokens of width
+  ``context_dim``: what the encoder gives. The class embedder gives one
+  token of ``encoder_hid_dim`` (the default), and a one-token
+  cross-attention has no ``to_q``, ``to_k`` or ``norm2`` (as the flax
+  tree, which never creates them). A T5 class table gives S tokens of its
+  own width D: ``encoder_hid_proj`` (``text_proj``) then maps D to
+  ``cross_attention_dim``, or without it ``to_k``/``to_v`` take D, as
+  flax's ``nn.Dense`` infers its input width from the context.
 - ``remat``: under grad, each resnet block, spatial transformer and
   self-attention block runs through ``torch.utils.checkpoint`` (the flax
   module's ``nn.remat`` boundaries): its activations are recomputed in the
@@ -120,13 +125,18 @@ class UNetConfig:
 class UNetCondition2D(nn.Module):
     """Class/text-conditional UNet denoiser: ``pred = net(z_t, logSNR_t, context)``, NHWC.
 
-    ``context_tokens`` is the length of the cross-attention context (1 for
-    the class embedder). ``forward(x, noise_labels, encoder_hidden_states,
-    deterministic=, mode=, prefix_state=)``: see the module docstring for
-    the modes, remat and dropout.
+    ``context_tokens`` and ``context_dim`` are the length and width of the
+    cross-attention context (1 and ``encoder_hid_dim`` for the class
+    embedder; S and D for a ``[C+1, S, D]`` T5 table).
+    ``forward(x, noise_labels, encoder_hidden_states, deterministic=,
+    mode=, prefix_state=)``: see the module docstring for the modes, remat
+    and dropout.
     """
 
-    def __init__(self, config: UNetConfig, dtype=torch.float32, *, context_tokens: int = 1):
+    def __init__(
+        self, config: UNetConfig, dtype=torch.float32, *, context_tokens: int = 1,
+        context_dim: Optional[int] = None,
+    ):
         super().__init__()
         self.config, self.dtype = config, dtype
         cfg = config
@@ -134,11 +144,12 @@ class UNetCondition2D(nn.Module):
         temb_dim = 4 * chans[0]
         self.time_embedding = TimestepEmbedding(chans[0], temb_dim, dtype)
         self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, dtype, padding=1)
-        if cfg.encoder_hid_dim_type == "text_proj":
-            self.encoder_hid_proj = Dense(cfg.encoder_hid_dim, cfg.cross_attention_dim, dtype)
-            context_dim = cfg.cross_attention_dim
-        else:
+        if context_dim is None:
             context_dim = cfg.encoder_hid_dim or cfg.cross_attention_dim
+        self.context_tokens, self.context_dim = context_tokens, context_dim
+        if cfg.encoder_hid_dim_type == "text_proj":
+            self.encoder_hid_proj = Dense(context_dim, cfg.cross_attention_dim, dtype)
+            context_dim = cfg.cross_attention_dim
 
         def resnet(name, in_ch, out_ch):
             self.add_module(name, ResnetBlock2D(

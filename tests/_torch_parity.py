@@ -29,6 +29,65 @@ TINY_UNET = dict(
 )
 
 
+# tests/test_t5_encoder.py's narrow t5 UNet (8 px, 1 channel, levels (16,
+# 32), 2 heads, 8 groups) with encoder_hid_dim 24 where its T5 table is 16
+# wide: the context's width must come from the table (flax infers it), not
+# from encoder_hid_dim
+T5_UNET = dict(
+    sample_size=8, in_channels=1, out_channels=1, block_out_channels=(16, 32),
+    down_block_types=("DownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "UpBlock2D"), layers_per_block=1,
+    attention_head_dim=2, cross_attention_dim=16, encoder_hid_dim=24,
+    encoder_hid_dim_type="text_proj", norm_num_groups=8,
+)
+T5_CLASSES = 3
+T5_TABLE_SHAPE = (T5_CLASSES + 1, 6, 16)  # 3 classes + the null row, 6 tokens of width 16
+
+
+def seeded_t5_table(seed: int = 0) -> np.ndarray:
+    """A ``[4, 6, 16]`` float32 class table of unit-scale values (a T5 output's scale)."""
+    return np.random.default_rng(seed).standard_normal(T5_TABLE_SHAPE).astype(np.float32)
+
+
+def t5_denoisers(table, hid_type="text_proj"):
+    """``(JAX denoiser, port denoiser)`` of :data:`T5_UNET` over ``table``, fp32, ``encoder_hid_dim_type=hid_type``."""
+    import jax.numpy as jnp
+
+    from diffusion_classifier_tpu.engine.denoiser import Denoiser as JaxDenoiser
+    from diffusion_classifier_tpu.models.encoders import make_encoder as jax_make_encoder
+    from diffusion_classifier_tpu.models.unet import UNetCondition2D as JaxUNet
+    from diffusion_classifier_tpu.models.unet import UNetConfig as JaxUNetConfig
+    from diffusion_classifier_tpu_torch.engine.denoiser import Denoiser
+    from diffusion_classifier_tpu_torch.models.encoders import make_encoder
+    from diffusion_classifier_tpu_torch.models.unet import UNetCondition2D, UNetConfig
+
+    cfg = dict(T5_UNET, encoder_hid_dim_type=hid_type)
+    jenc, _ = jax_make_encoder("t5", num_classes=T5_CLASSES, t5_table=jnp.asarray(table))
+    tenc, _ = make_encoder("t5", num_classes=T5_CLASSES, t5_table=table)
+    _, s, d = table.shape
+    jden = JaxDenoiser(backbone=JaxUNet(JaxUNetConfig(**cfg)), encoder=jenc)
+    port = Denoiser(UNetCondition2D(UNetConfig(**cfg), context_tokens=s, context_dim=d), tenc)
+    return jden, port
+
+
+def write_cifar_batches(root, n_train, n_test, classes=10):
+    """``cifar-10-batches-py`` under ``root``: five train batches of ``n_train`` images, a test batch of ``n_test``.
+
+    uint8 ``data`` rows of 3 × 32 × 32 channel-major bytes and labels below
+    ``classes``, in byte-keyed pickled dicts, as the download holds them.
+    """
+    import pickle
+
+    root.mkdir(parents=True)
+    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+    for seed, name in enumerate(names):
+        n = n_test if name == "test_batch" else n_train
+        rng = np.random.default_rng(seed)
+        data = rng.integers(0, 256, (n, 3072), dtype=np.uint8)
+        with open(root / name, "wb") as f:
+            pickle.dump({b"data": data, b"labels": list(rng.integers(0, classes, n))}, f)
+
+
 def to_numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
 

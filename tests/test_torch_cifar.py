@@ -13,13 +13,13 @@ import dataclasses
 import importlib.util
 import json
 import os
-import pickle
 import tarfile
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_parity import write_cifar_batches
 from diffusion_classifier_tpu.data.cifar import CIFAR10DataLoader as JaxCIFAR10DataLoader
 from diffusion_classifier_tpu.data.cifar import load_cifar10_arrays as jax_load_cifar10_arrays
 from diffusion_classifier_tpu_torch.data.cifar import (
@@ -36,21 +36,9 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _write_cifar(root, n_train, n_test, classes=10):
-    """Five train batches of ``n_train`` images and a test batch of ``n_test``, labels below ``classes``."""
-    root.mkdir(parents=True)
-    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
-    for seed, name in enumerate(names):
-        n = n_test if name == "test_batch" else n_train
-        rng = np.random.default_rng(seed)
-        data = rng.integers(0, 256, (n, 3072), dtype=np.uint8)
-        with open(root / name, "wb") as f:
-            pickle.dump({b"data": data, b"labels": list(rng.integers(0, classes, n))}, f)
-
-
 @pytest.mark.parametrize("layout", ["folder", "tarball"])
 def test_cifar_arrays_and_batches_match_jax(tmp_path, layout):
-    _write_cifar(tmp_path / "files" / "cifar-10-batches-py", n_train=8, n_test=8)
+    write_cifar_batches(tmp_path / "files" / "cifar-10-batches-py", n_train=8, n_test=8)
     path = str(tmp_path / "files")
     if layout == "tarball":
         path = str(tmp_path / "tar_only")
@@ -100,7 +88,7 @@ def test_train_torch_runs_on_cpu(tmp_path, monkeypatch, capsys):
     # pickles: 5 train images make one step at B=5; 2 classes, one
     # evaluation, one sampling step for the plot keep the eval short
     monkeypatch.setattr(cifar10, "build_backbone", _narrow_flagship)
-    _write_cifar(tmp_path / "data" / "cifar-10-batches-py", n_train=1, n_test=5, classes=2)
+    write_cifar_batches(tmp_path / "data" / "cifar-10-batches-py", n_train=1, n_test=5, classes=2)
     config = dict(
         data_path=str(tmp_path / "data"), classes=2, encoder_type="nn", mixed_precision="no",
         batch_size=5, num_epochs=1, log_every_steps=1, evaluation_per_stage=[1],

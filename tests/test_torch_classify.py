@@ -14,13 +14,16 @@ import pytest
 import torch
 
 from _torch_parity import JaxDraws, to_numpy_tree
+from diffusion_classifier_tpu.diffusion.classify import auto_eval_group as jax_auto_eval_group
 from diffusion_classifier_tpu.diffusion.classify import make_classifier as jax_make_classifier
 from diffusion_classifier_tpu.diffusion.schedule import make_schedule_fn as jax_schedule
 from diffusion_classifier_tpu.models.dit import DiT as JaxDiT
 from diffusion_classifier_tpu.models.dit import DiTConfig as JaxDiTConfig
 from diffusion_classifier_tpu_torch.diffusion.classify import (
+    ROW_BYTES_PER_ELEM,
     TorchDraws,
     auto_eval_group,
+    card_eval_group,
     make_classifier,
 )
 from diffusion_classifier_tpu_torch.diffusion.schedule import make_schedule_fn
@@ -131,3 +134,64 @@ def test_auto_eval_group_unchanged():
 def test_rejects_group_that_does_not_divide_a_stage():
     with pytest.raises(ValueError, match="eval_group"):
         make_classifier(lambda *a: None, lambda t: t, eval_group=3, **PROTOCOL)
+
+
+# (n_evals, B, K, image elements): CIFAR, the CheXpert DWT and IPMSA images,
+# a serving batch of 1, a stage count with many divisors
+GROUP_GRID = [
+    (n, b, k, e)
+    for n in (1, 4, 12, 16)
+    for b in (1, 8, 64)
+    for k in (1, 2, 10)
+    for e in (32 * 32 * 3, 128 * 128 * 12, 128 * 128 * 40)
+]
+
+
+@pytest.mark.parametrize("target", [512, 64, 4096])
+def test_auto_eval_group_equals_jax_over_a_grid(target):
+    for n, b, k, e in GROUP_GRID:
+        assert auto_eval_group(n, b, k, target, e) == jax_auto_eval_group(n, b, k, target, e), (n, b, k, e)
+
+
+class _GroupsSeen(TorchDraws):
+    """Torch draws that record each group's size ``G`` (the first axis of ``t``)."""
+
+    def __init__(self, seed=0):
+        super().__init__(torch.Generator().manual_seed(seed))
+        self.groups = []
+
+    def noise(self, stage, n_stages, group_idx, n_groups, t_shape, eps_shape):
+        self.groups.append((stage, t_shape[0], n_groups))
+        return super().noise(stage, n_stages, group_idx, n_groups, t_shape, eps_shape)
+
+
+@pytest.mark.parametrize("target", [None, 8, 24])
+def test_cpu_and_explicit_target_group_is_jax(target):
+    # on the CPU (no target: JAX's default of 512) and with an explicit
+    # megabatch_target, each stage's G is the JAX package's for its candidates
+    ev, keep, b, shape = (4, 12), (2, 1), 3, (16, 16, 3)
+    fn = make_classifier(
+        lambda z, lg, lab: torch.zeros_like(z), make_schedule_fn("cosine", 64, 8), pred_param="v",
+        num_classes=C, n_stages=2, evaluation_per_stage=ev, n_keep_per_stage=keep,
+        megabatch_target=target,
+    )
+    draws = _GroupsSeen()
+    fn(torch.zeros((b,) + shape), torch.zeros(b, dtype=torch.long), draws)
+    want = []
+    for stage, (n, k) in enumerate(((ev[0], C), (ev[1] - ev[0], keep[0]))):
+        g = jax_auto_eval_group(n, b, k, target or 512, int(np.prod(shape)))
+        want += [(stage, g, n // g)] * (n // g)
+    assert draws.groups == want
+    if target == 8:  # a budget of 32 rows: 2 evaluations of 3 x 3 rows, then 4 of 3 x 2
+        assert want == [(0, 2, 2)] * 2 + [(1, 4, 2)] * 2
+
+
+def test_card_eval_group_fits_the_free_memory_share():
+    row = ROW_BYTES_PER_ELEM * 3072  # a CIFAR image's megabatch row
+    # 16 evaluations at B=64 x 10 classes: 640 rows an evaluation
+    assert card_eval_group(16, 64, 10, 3072, free_bytes=int(640 * 16 * row / 0.5)) == 16
+    assert card_eval_group(16, 64, 10, 3072, free_bytes=int(640 * 15 * row / 0.5)) == 8
+    assert card_eval_group(16, 64, 10, 3072, free_bytes=int(640 * 4 * row / 0.5)) == 4
+    assert card_eval_group(16, 64, 10, 3072, free_bytes=0) == 1  # never below one evaluation
+    # room for 5 evaluations' rows: the largest divisor of 12 within it is 4
+    assert card_eval_group(12, 64, 10, 3072, free_bytes=int(640 * 5 * row / 0.5)) == 4

@@ -353,3 +353,41 @@ def test_ddp_over_gloo_on_the_card_matches_one_process(cuda, tmp_path):
                 np.testing.assert_allclose(got[key], want[key], rtol=0, atol=2 * lr)
                 got, want = np.delete(got, key), np.delete(want, key)
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-6, err_msg=name)
+
+
+def test_classify_auto_group_follows_the_cards_free_memory(cuda):
+    """``eval_group=0`` on the card: each stage's G is ``card_eval_group`` of the free memory; a target gives JAX's."""
+    from diffusion_classifier_tpu_torch.diffusion.classify import (
+        TorchDraws,
+        auto_eval_group,
+        card_eval_group,
+        make_classifier,
+    )
+    from diffusion_classifier_tpu_torch.diffusion.schedule import make_schedule_fn
+
+    class Seen(TorchDraws):
+        def __init__(self):
+            super().__init__(torch.Generator(device="cuda").manual_seed(0))
+            self.groups = []
+
+        def noise(self, stage, n_stages, group_idx, n_groups, t_shape, eps_shape):
+            self.groups.append(t_shape[0])
+            return super().noise(stage, n_stages, group_idx, n_groups, t_shape, eps_shape)
+
+    b, c, n = 64, 10, 16  # the CIFAR classify's batch and classes, the config's 16 evaluations
+    x = torch.zeros((b, 32, 32, 3), device="cuda")
+    labels = torch.zeros(b, dtype=torch.long, device="cuda")
+    for target in (None, 512):
+        fn = make_classifier(
+            lambda z, lg, lab: torch.zeros_like(z), make_schedule_fn("cosine", 64, 32), pred_param="v",
+            num_classes=c, n_stages=1, evaluation_per_stage=(n,), n_keep_per_stage=(1,),
+            megabatch_target=target,
+        )
+        torch.cuda.synchronize()
+        free = torch.cuda.mem_get_info()[0]
+        draws = Seen()
+        fn(x, labels, draws)
+        want = auto_eval_group(n, b, c, 512, 3072) if target else card_eval_group(n, b, c, 3072, free)
+        assert draws.groups == [want] * (n // want)
+    # 80 GB free holds the whole stage at once, where the JAX budget takes 1 evaluation a group
+    assert card_eval_group(n, b, c, 3072, free) == n and auto_eval_group(n, b, c, 512, 3072) == 1

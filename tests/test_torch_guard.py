@@ -125,3 +125,40 @@ def test_parallel_modules_import_without_jax_or_the_jax_package():
         "diffusion_classifier_tpu_torch.parallel.sharding",
         "diffusion_classifier_tpu_torch.parallel.collectives",
     ]
+
+
+def test_transformers_is_imported_only_inside_build_t5_class_table():
+    """Serving from a saved t5 table needs no ``transformers`` (the card's machine has none)."""
+    import ast
+
+    found = []
+    for folder, _, files in os.walk(PORT):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(folder, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            scopes = {}
+            for node in ast.walk(tree):
+                for child in ast.iter_child_nodes(node):
+                    scopes[child] = node
+            for node in ast.walk(tree):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    names = [node.module or ""]
+                if any(n.split(".")[0] == "transformers" for n in names):
+                    scope = scopes.get(node)
+                    while scope is not None and not isinstance(scope, ast.FunctionDef):
+                        scope = scopes.get(scope)
+                    found.append((os.path.relpath(path, REPO), getattr(scope, "name", None)))
+    assert found == [(os.path.join("diffusion_classifier_tpu_torch", "models", "encoders.py"),
+                      "build_t5_class_table")]
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, diffusion_classifier_tpu_torch.engine, "
+         "diffusion_classifier_tpu_torch.experiments.cifar10; print('transformers' in sys.modules)"],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert proc.returncode == 0 and proc.stdout.split() == ["False"], proc.stderr[-4000:]

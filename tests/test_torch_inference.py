@@ -101,7 +101,9 @@ def test_engine_refuses_what_is_not_ported():
     eng = DiffusionClassifier(
         DiT(DiTConfig(**TINY)), ExperimentConfig.from_dict(dict(CONFIG)), device="cpu"
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # 't5' is ported (tests/test_torch_t5.py); its [B, S, D] context needs a
+    # backbone with cross-attention, which the DiT has not
+    with pytest.raises(ValueError, match="context"):
         DiffusionClassifier(
             DiT(DiTConfig(**TINY)),
             ExperimentConfig.from_dict(dict(CONFIG, encoder_type="t5")),
