@@ -24,15 +24,19 @@ and evaluation; and the flagship UNet conditioned on a T5 class table
 
 1. device: a CUDA device is required; prints the card's name and power limit;
 2. build: compiles both kernels, prints the seconds, ptxas' register use and
-   spills, and the ``HMMA`` instructions of every kernel entry from
-   ``cuobjdump -sass`` (found beside ``nvcc``); fails if a bf16 entry of the
-   forward, dk/dv or dq kernels has none (tensor cores unused);
+   spills, and the ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA load)
+   instructions of every kernel entry from ``cuobjdump -sass`` (found beside
+   ``nvcc``); fails, naming the entry, if a bf16 entry of the forward, dk/dv
+   or dq kernels lacks either (the Hopper tensor-core path unused), or if
+   the bf16 entries are not the forward's 5 and the backward's 12 tilings;
 3. forward kernel vs its plain PyTorch version on the card at the main
    path's shapes (the DiT's 1024 tokens at 16, 32 and 64 rows, the
    classify groups of 1, 2 and 4 evaluations that the card's free memory
    can give, and its OOD run's 64 tokens; the IPMSA UNet's classify tails
    at each group size, its explain tail, its B=1 tails and its B=64 step
-   at 256 tokens × 8 × 64; the IPMSA DiT's train batch), strided q/k/v thirds and ragged and odd sequences in both dtypes included, with timings (plain; kernel and SDPA as a yardstick in
+   at 256 tokens × 8 × 64; the IPMSA DiT's train batch), strided q/k/v thirds and ragged and odd sequences in both dtypes included (bf16 at every
+   head dim at S = 1, 17, 65, 129 and 1000, ``TMA_RAGGED_CASES``; 21 runs at
+   the DiT's shape give the same bits), with timings (plain; kernel and SDPA as a yardstick in
    turns: kernel, SDPA, SDPA, kernel, each run 10 calls back to back, and
    again of single calls, which also count the wrapper's host time; the
    host microseconds of one wrapper call) and the bound;
@@ -42,8 +46,9 @@ and evaluation; and the flagship UNet conditioned on a T5 class table
    with launch counts and no alignment copy, then classify throughput at
    B=16 and latency at B=1, each with a profiler table;
 6. backward kernel vs its plain version at the same kind of shapes (the
-   IPMSA UNet's B=64 step and the IPMSA DiT's train batch among them), with
-   timings (plain; kernel and SDPA's backward in turns, back to back and
+   IPMSA UNet's B=64 step and the IPMSA DiT's train batch among them, the
+   ragged ``TMA_RAGGED_CASES``); 21 runs at the DiT's shape give the same
+   bits of dq, dk and dv; with timings (plain; kernel and SDPA's backward in turns, back to back and
    single calls; host microseconds per call) and the bound;
 7. full-width DiT-b4 gradients at B=16, kernels vs plain attention on the
    same weights and draws: relative L2 ≤ 2e-2, 12 + 12 launches;
@@ -254,6 +259,10 @@ RAGGED_CASES = [
     ((1, 65, 1, 128), torch.bfloat16),
     ((3, 77, 2, 32), torch.bfloat16),
 ]
+# the TMA tiles' ragged edges at every head dim (each D its own box width and
+# swizzle): one row, under one 64-row box, one row past a box, past two
+# boxes (the 128-row tiles), and 1000 (ragged after several ring rounds)
+TMA_RAGGED_CASES = [((2, s, 2, d), torch.bfloat16) for d in (32, 64, 128) for s in (1, 17, 65, 129, 1000)]
 # the IPMSA paths' other shapes (phases 22-23): the UNet's level 3 (256
 # tokens, 8 x 64) in its classify and explain tails (2 x 8 rows), its B=1
 # classify tail (2 rows) and its step at the config's B=64; the IPMSA DiT's
@@ -285,6 +294,7 @@ KERNEL_CASES = [
     *TP_CASES,
     *TP_CLASSIFY_CASES,
     *RAGGED_CASES,
+    *TMA_RAGGED_CASES,
 ]
 BWD_CASES = [
     (DIT_SHAPE, torch.bfloat16),
@@ -294,7 +304,10 @@ BWD_CASES = [
     ((1, 512, 3, 128), torch.bfloat16),
     *TP_CASES,
     *RAGGED_CASES,
+    *TMA_RAGGED_CASES,
 ]
+# runs of the DiT's shape whose outputs must be the same bits (phases 3, 6)
+REPEATS = 20
 # repetitions of each turn when a kernel is timed against its library call,
 # and the back-to-back calls in each repetition: with one call, the event
 # pair also times the host's work in the wrapper while the card waits
@@ -486,16 +499,30 @@ def phase_device():
 
 
 def entry_name(text):
-    """``"dkdv bf16 D=64"`` for a mangled kernel name in ``text``; ``text`` if none."""
-    match = re.search(r"(flash_fwd|delta|dkdv|dq)(_mma)?_kernelI(13__nv_bfloat16|f)?Li(\d+)E", text)
+    """``"dkdv bf16 D=64 wg=2"`` for a mangled kernel name in ``text``; ``text`` if none.
+
+    The bf16 ``wgmma`` entries carry their tiling: the forward's K/V tile
+    rows (``N=``), the backward passes' consumer warpgroups (``wg=``).
+    """
+    match = re.search(r"(flash_fwd|delta|dkdv|dq)(_wgmma)?_kernelI(13__nv_bfloat16|f)?Li(\d+)E((?:Li\d+E)*)", text)
     if not match:
         return text.strip()
-    name, mma, dtype, dim = match.groups()
-    return f"{name} {'f32' if dtype == 'f' else 'bf16'} D={dim}"
+    name, wgmma, dtype, dim, rest = match.groups()
+    label = f"{name} {'f32' if dtype == 'f' else 'bf16'} D={dim}"
+    if wgmma:
+        (tiling,) = [int(x) for x in re.findall(r"Li(\d+)E", rest)]
+        label += f" N={tiling}" if name == "flash_fwd" else f" wg={tiling}"
+    return label
 
 
-def sass_hmma(fa, kernel):
-    """``{entry: HMMA count}`` over the kernel entries of ``kernel``'s library (``cuobjdump -sass``)."""
+SASS_OPS = {"hgmma": r"\bHGMMA\.", "utmaldg": r"\bUTMALDG\b"}
+
+
+def sass_counts(fa, kernel):
+    """``{entry: {"hgmma": n, "utmaldg": n}}`` over ``kernel``'s library (``cuobjdump -sass``).
+
+    ``wgmma`` assembles to ``HGMMA`` and a TMA tile load to ``UTMALDG``.
+    """
     tool = os.path.join(os.path.dirname(fa._nvcc()), "cuobjdump")
     check(os.path.isfile(tool), f"no cuobjdump beside nvcc: {tool}")
     sass = subprocess.run(
@@ -506,21 +533,23 @@ def sass_hmma(fa, kernel):
     for line in sass.splitlines():
         if "Function :" in line:
             entry = entry_name(line.split("Function :", 1)[1])
-            counts[entry] = 0
-        elif entry is not None and re.search(r"\bHMMA\.", line):
-            counts[entry] += 1
+            counts[entry] = dict.fromkeys(SASS_OPS, 0)
+        elif entry is not None:
+            for op, pattern in SASS_OPS.items():
+                counts[entry][op] += bool(re.search(pattern, line))
     return counts
 
 
 def phase_build(fa):
     seconds = fa.build_all(fa.FLASH_FWD, fa.FLASH_BWD)
     print(f"[2 build] flash_attn_fwd and flash_attn_bwd built and loaded in {seconds:.2f} s")
-    hmma = {}
+    sass = {}
     for kernel in (fa.FLASH_FWD, fa.FLASH_BWD):
         # ptxas -v: one "Compiling entry function '<mangled name>'" line, then
-        # its spills, then its registers
+        # its spills, then its registers (none when the library was built
+        # before this process)
         entry = spill = None
-        counts = sass_hmma(fa, kernel)
+        ptxas = {}
         for line in kernel.build_log.splitlines():
             if "Compiling entry" in line:
                 entry = entry_name(line)
@@ -528,15 +557,23 @@ def phase_build(fa):
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)
             elif "Used" in line and "registers" in line and entry:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                print(f"[2 build]   {entry}: {regs} registers, {spill} bytes spilled, {counts.get(entry)} HMMA")
+                ptxas[entry] = f"{regs} registers, {spill} bytes spilled"
                 entry = None
-        # every bf16 entry of the attention passes runs on the tensor cores
+        counts = sass_counts(fa, kernel)
+        for entry, ops in counts.items():
+            print(f"[2 build]   {entry}: {ptxas.get(entry, 'built earlier')}, "
+                  + ", ".join(f"{n} {op.upper()}" for op, n in ops.items()))
+        # every bf16 entry of the attention passes runs wgmma fed by TMA: the
+        # forward's 64- and 128-row K/V tilings (64 only at D=128), the dk/dv
+        # and dq passes at 1 and 2 consumer warpgroups, per D
         tensor_core = {e: n for e, n in counts.items() if e.split()[0] in ("flash_fwd", "dkdv", "dq") and "bf16" in e}
-        check(len(tensor_core) == (3 if kernel is fa.FLASH_FWD else 6),
+        check(len(tensor_core) == (5 if kernel is fa.FLASH_FWD else 12),
               f"bf16 entries of {kernel.name} in the SASS: {sorted(counts)}")
-        check(all(tensor_core.values()), f"bf16 entries of {kernel.name} without HMMA: {tensor_core}")
-        hmma[kernel.name] = tensor_core
-    return hmma
+        lacking = sorted(e for e, n in tensor_core.items() if not (n["hgmma"] and n["utmaldg"]))
+        check(not lacking, f"bf16 entries of {kernel.name} without HGMMA or UTMALDG: "
+              + ", ".join(f"{e} ({tensor_core[e]})" for e in lacking))
+        sass[kernel.name] = tensor_core
+    return sass
 
 
 def phase_kernel(fa):
@@ -555,6 +592,11 @@ def phase_kernel(fa):
         record["shapes"].append({"shape": list(shape), "dtype": str(dtype)[6:], "qkv": "strided thirds", "max_abs_err": err})
         if shape == DIT_SHAPE:
             b, s, h, d = shape
+            # compute-sanitizer refuses the card's sandbox: a race between the
+            # TMA ring and the products would show as output bits that move
+            same = all(torch.equal(got, fa.FLASH_FWD(q, k, v)) for _ in range(REPEATS))
+            print(f"[3 kernel] {shape} bf16 run {REPEATS + 1} times: bit-identical {same}")
+            check(same, f"the forward's output differs between runs at {shape}")
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             record["max_abs_err"] = err
             record["plain_ms"] = cuda_ms(lambda: fa.flash_attention_reference(q, k, v))
@@ -590,6 +632,10 @@ def phase_backward(fa):
         record["shapes"].append({"shape": list(shape), "dtype": str(dtype)[6:], "qkv": "strided thirds", "max_abs_err": max(errs)})
         if shape == DIT_SHAPE:
             b, s, h, d = shape
+            same = [all(torch.equal(g, a) for a in again) for g, *again in zip(
+                got, *(fa.FLASH_BWD(q, k, v, out, do, lse) for _ in range(REPEATS)))]
+            print(f"[6 backward] {shape} bf16 run {REPEATS + 1} times: dq, dk, dv bit-identical {same}")
+            check(all(same), f"the backward's gradients differ between runs at {shape}: {same}")
             record["max_abs_err"] = max(errs)
             record["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, do, out))
             qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
@@ -3026,7 +3072,7 @@ def main() -> int:
     from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
 
     phase_device()
-    hmma = phase_build(fa)
+    sass = phase_build(fa)
     records = {"flash_attn_fwd": phase_kernel(fa), "flash_attn_bwd": phase_backward(fa)}
     config = ExperimentConfig.from_dict(dict(INFERENCE_CONFIG))
     phase_dit(fa, chexpert, config)
@@ -3150,7 +3196,7 @@ def main() -> int:
             **{key: records[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_ratio", "call_ms", "library_call_ms", "host_us", "shapes")},
-            "hmma": hmma[name],
+            **{op: {entry: n[op] for entry, n in sass[name].items()} for op in ("hgmma", "utmaldg")},
         }
         for name, (source, replaces) in KERNELS.items()
     ]}))

@@ -1,5 +1,5 @@
 // Non-causal flash-attention backward for Hopper (sm_90a): bf16 on the tensor
-// cores, fp32 on scalar FMAs.
+// cores through `wgmma` fed by TMA, fp32 on scalar FMAs.
 //
 // Replaces the TPU Pallas backward `_flash_bwd` of
 // diffusion_classifier_tpu/ops/flash_attention.py: its lane-group path
@@ -24,40 +24,56 @@
 //   2. dk/dv: one block per (K/V tile, head, batch) streaming q/dO;
 //   3. dq: one block per (q tile, head, batch) streaming K/V; it
 //      recomputes s and dp (14 rather than 10 S²·D flops per head), which
-//      buys run-to-run identical dq without atomics.
+//      buys run-to-run identical dq without atomics (FA3's dq sums with
+//      atomics, whose order changes from run to run).
 //
 // Bound: at (B, S, H, D) = (16, 1024, 6, 64) bf16 the call needs
 // 10·B·H·S²·D = 64.4 GFLOP (s, dp, dv, dk, dq) over 101 MB (q, k, v, O, dO
 // and the fp32 lse in; dq, dk, dv out), ~640 flops per byte, above the
 // H100's ~295 flop/byte bf16 ridge: compute-bound, 0.0651 ms at the 989
 // TFLOP/s bf16 dense peak (chip_smoke.py's bound, H100 80GB HBM3 at 700 W).
-// Only the tensor cores come near it, so the bf16 passes are built on them,
-// every product an `mma.sync.m16n8k16` (bf16 operands, fp32 accumulators),
-// 4 warps a block. Each warp owns two 16-row bands at D ≤ 64 (one at
-// D = 128, register budget): with one band, one `ldmatrix` fed two `mma`s and
-// shared-memory reads set the pace; two bands double the products per read.
-// The streamed tiles are 32 rows and ride a two-deep `cp.async` ring (the
-// next tile's copy runs under this tile's products). The tiling was chosen
-// by timing the alternatives on the card (PERF.md, PR 3's tilings table).
+// Only `wgmma` reaches the tensor cores' full rate, so the bf16 passes are
+// built on it (helpers in flash_sm90.cuh), warp-specialised like the
+// forward: each block has kConsumers consumer warpgroups of 64 own rows and
+// one producer warpgroup whose first warp issues the TMA loads; the streamed
+// tiles are 64 rows in a ring of 2 stages with "full" and "empty"
+// `mbarrier`s; `setmaxnreg` gives the producers 24 registers and the
+// consumers what that frees. Tilings: 2 consumer warpgroups (one block an
+// SM, 240 registers a consumer thread), or 1 when seq ≤ kShortSeq = 64 (the
+// UNets' 16 and 64 tokens: two blocks an SM, 232 registers), where 128 own
+// rows would be mostly padding and two blocks an SM hide each other's
+// latency. A streamed tile is taken in product steps of kSub rows: 64, or 32
+// at one consumer warpgroup and at D = 128, where 64-column score tiles
+// beside the dK and dV sums would spill the consumers' registers.
 //
-// dkdv_mma_kernel: K/V rows are the M dimension. The q/dO tiles stream with
-// their lse and δ, and the tiles are computed transposed: Sᵀ = K·Qᵀ and
-// dPᵀ = V·dOᵀ (K, V as A fragments by `ldmatrix` at each k step — held for the
-// whole sweep beside two bands' dk/dv sums they would pass 255 registers;
-// Q, dO as B), then Pᵀ = exp2(c·Sᵀ − lse[col]) and dSᵀ = Pᵀ∘(dPᵀ − δ[col]) on
-// the accumulators, whose m16n8 layout packed to bf16 is the A fragment of
-// the next product: dV += bf16(Pᵀ)·dO and dK += bf16(dSᵀ)·Q take A from
-// registers and dO, Q through `ldmatrix.trans`. P and dS never touch shared
-// memory; `scale` multiplies dK once at the store.
+// dkdv_wgmma_kernel: K/V rows are the M dimension. The block's K and V
+// tiles load once; Q and dO tiles stream, with their lse and δ (the
+// producer warp's 32 lanes copy those rows into the stage and arrive on its
+// full barrier, which also counts TMA's bytes). Each consumer warpgroup
+// computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (`wgmma` m64 x kSub, A = K or V and
+// B = Q or dO, all K-major in shared memory), then Pᵀ = exp2(c·Sᵀ − lse[col]) and
+// dSᵀ = Pᵀ∘(dPᵀ − δ[col]) in place on the accumulators, packs both to bf16
+// register A operands and runs dV += bf16(Pᵀ)·dO and dK += bf16(dSᵀ)·Q with
+// B = dO or Q read MN-major (the transpose bit set). P and dS never touch
+// shared memory; `scale` multiplies dK once at the store. Pᵀ and dSᵀ are
+// packed before the products, so the fp32 tiles are dead while they run.
 //
-// dq_mma_kernel: q rows are M; Q and dO are A fragments in registers for the
-// whole sweep, and K/V tiles stream. S = Q·Kᵀ, dP = dO·Vᵀ, dS = P∘(dP − δ[row])
-// in registers, dQ += bf16(dS)·K with K through `ldmatrix.trans`.
+// dq_wgmma_kernel: q rows are M; the block's Q and dO tiles load once, K and
+// V tiles stream. S = Q·Kᵀ and dP = dO·Vᵀ (A = Q or dO, B = K or V, K-major),
+// dS = P∘(dP − δ[row]) with the rows' lse and δ in registers, then
+// dQ += bf16(dS)·K with B = K read MN-major from the same shared tile.
 //
-// In both, c and −lse enter in one FFMA and exp2 is one `ex2.approx`. The
-// ragged last tiles: rows past `seq` are zero-filled by `cp.async`, p (and so
-// ds) is forced to 0 in columns past `seq` (a zero q row would otherwise
-// score s = 0 against lse 0, p = 1), and rows past `seq` are never stored.
+// In both, c and −lse enter in one FFMA and exp2 is one `ex2.approx`.
+// Hazards, as in the forward (flash_attn_fwd.cu): strided q, k, v and dO
+// are read through one 4-D tensor map each (4 encodes a call; δ reads O and
+// dO with plain loads); the D = 128
+// tiles are two 64-column boxes, D = 32 takes the 64-byte swizzle; the
+// ragged last tiles: TMA zero-fills rows past `seq`, p (and so ds) is forced
+// to 0 in columns past `seq` (a zero q row would otherwise score s = 0
+// against lse 0, p = 1), and rows past `seq` are never stored; `wgmma.fence`
+// before each batch of products and fence_regs after each wait. FA3's
+// ping-pong between the two consumer warpgroups was measured slower on the
+// card and not kept (PERF.md).
 //
 // Where the bf16 arithmetic differs from `_bwd_one_head`: c multiplies the
 // fp32 accumulator after q·k instead of q before it (tensor-core operands are
@@ -84,16 +100,18 @@
 // Built by nvcc into a shared library with a plain C entry point
 // (flash_attn_bwd) and bound with ctypes; no PyTorch headers.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_mma.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
-using fa_mma::bf16;
+using fa_sm90::bf16;
+using fa_sm90::Strides;
 
 constexpr int kBlock = 64;    // rows of a q tile and of a K/V tile (fp32)
 constexpr int kThreads = 256;
@@ -114,10 +132,6 @@ template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
-
-struct Strides {
-  int64_t b, s, h;
-};
 
 // The tensors of one call, each with its strides.
 template <typename T>
@@ -399,340 +413,335 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args<T> a) {
   }
 }
 
-// The bf16 tiling of both passes: 4 warps of kBands 16-row bands each (K/V
-// rows for dk/dv, q rows for dq) share each streamed tile of kStream rows
-// (q/dO for dk/dv, K/V for dq); see the notes at the top.
-template <int D>
-struct MmaTiling {
-  static constexpr int kWarps = 4;
-  static constexpr int kBands = D <= 64 ? 2 : 1;
-  static constexpr int kRows = kWarps * kBands * 16;
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr int kStream = 32;
-  static_assert(kStream % 16 == 0, "the streamed rows are a k16 step of dV, dK and dQ");
-  // the block's rows and two buffers of both streamed tiles, bf16 [..][D+8]
-  static constexpr size_t kTiles = sizeof(bf16) * (2 * kRows + 4 * kStream) * (D + 8);
+// ---- bf16: the warp-specialised wgmma passes (see the notes at the top)
+
+// sequences up to this many rows take one consumer warpgroup a block
+constexpr int kShortSeq = 64;
+
+template <int D, int kConsumers>
+struct BwdTiling {
+  using Tile = fa_sm90::Tile<D>;
+  using Budget = fa_sm90::Budget<kConsumers, kConsumers == 1 ? 2 : 1>;
+  static constexpr int kRows = 64 * kConsumers;  // the block's own rows (K/V or q)
+  static constexpr int kStream = 64;             // rows of a streamed tile
+  // streamed rows a product step takes: 32 where 64-column score tiles
+  // would spill the consumers' registers (one consumer warpgroup: 232; D =
+  // 128: the dK and dV or dQ sums take 64 a thread each)
+  static constexpr int kSub = kConsumers == 1 || D == 128 ? 32 : 64;
+  static constexpr int kStages = 2;              // ring depth
+  static constexpr uint32_t kOwnBytes = Tile::bytes(kRows);
+  static constexpr uint32_t kStreamBytes = Tile::bytes(kStream);
+  // two own tiles, two streamed tiles a stage, and (dk/dv) each stage's lse
+  // and δ; 1024 bytes of slack to align the tiles
+  static constexpr size_t kSmem =
+      1024 + 2 * kOwnBytes + 2 * kStages * kStreamBytes + 2 * kStages * kStream * sizeof(float);
 };
 
-template <int D>
-__global__ void __launch_bounds__(MmaTiling<D>::kThreads) dkdv_mma_kernel(Args<bf16> a) {
-  using namespace fa_mma;
-  using Tiling = MmaTiling<D>;
-  constexpr int kThreadsM = Tiling::kThreads;
-  constexpr int kBands = Tiling::kBands;
-  constexpr int kStride = D + 8;
-  constexpr int kM = Tiling::kStream;  // q rows per streamed tile
-  constexpr int kQTile = kM * kStride;
-  constexpr int kKSteps = D / 16;
-  constexpr int kNTiles = kM / 8;       // n8 tiles of a transposed score band
+template <int D, int kConsumers>
+__global__ void __launch_bounds__(128 * (kConsumers + 1), kConsumers == 1 ? 2 : 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                  Args<bf16> a) {
+  using namespace fa_sm90;
+  using Tiling = BwdTiling<D, kConsumers>;
+  using Tl = typename Tiling::Tile;
+  using Budget = typename Tiling::Budget;
+  constexpr int kStages = Tiling::kStages;
+  constexpr int kRowsB = Tiling::kRows;
+  constexpr int kM = Tiling::kStream;   // q rows a streamed tile
+  constexpr int kSub = Tiling::kSub;
   constexpr int kDTiles = D / 8;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + Tiling::kRows * kStride;
-  bf16* Qs = Vs + Tiling::kRows * kStride;  // [2][kM][kStride]
-  bf16* dOs = Qs + 2 * kQTile;              // [2][kM][kStride]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * kQTile);  // [2][kM]
-  float* Dl = Ls + 2 * kM;                                  // [2][kM]
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];
+  const uint32_t pad = ((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw);
+  const uint32_t sk = smem_u32(smem_raw) + pad;
+  const uint32_t sv = sk + Tiling::kOwnBytes;
+  const uint32_t sq = sv + Tiling::kOwnBytes;                  // [kStages]
+  const uint32_t sdo = sq + kStages * Tiling::kStreamBytes;    // [kStages]
+  // [kStages][lse, δ][kM]
+  float* stats = reinterpret_cast<float*>(smem_raw + pad + 2 * Tiling::kOwnBytes +
+                                          2 * kStages * Tiling::kStreamBytes);
+  const uint32_t kv_full = smem_u32(bars);
+  const uint32_t full = kv_full + 8;       // + 8·stage
+  const uint32_t empty = full + 8 * kStages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3;
-  const int n0 = blockIdx.x * Tiling::kRows;
+  const int n0 = blockIdx.x * kRowsB;
   const int head = blockIdx.y, batch = blockIdx.z;
   const int seq = a.seq;
-  const bf16* qb = a.q + batch * a.qs.b + head * a.qs.h;
-  const bf16* gb = a.dout + batch * a.dos.b + head * a.dos.h;
-  const int64_t stat0 = (static_cast<int64_t>(batch) * a.heads + head) * seq;
-  const float* lse = a.lse + stat0;
-  const float* delta = a.delta + stat0;
-
-  load_rows<D, Tiling::kRows, kThreadsM>(Ks, a.k + batch * a.ks.b + head * a.ks.h, a.ks.s, n0, seq);
-  load_rows<D, Tiling::kRows, kThreadsM>(Vs, a.v + batch * a.vs.b + head * a.vs.h, a.vs.s, n0, seq);
-  load_rows<D, kM, kThreadsM>(Qs, qb, a.qs.s, 0, seq);
-  load_rows<D, kM, kThreadsM>(dOs, gb, a.dos.s, 0, seq);
-  load_stats<kM, kThreadsM>(Ls, lse, 0, seq);
-  load_stats<kM, kThreadsM>(Dl, delta, 0, seq);
-  cp_async_commit();
-
-  float dk[kBands][kDTiles][4], dv[kBands][kDTiles][4];
-#pragma unroll
-  for (int i = 0; i < kBands; ++i)
-#pragma unroll
-    for (int d = 0; d < kDTiles; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[i][d][e] = dv[i][d][e] = 0.f;
-
   const int m_tiles = (seq + kM - 1) / kM;
-  for (int j = 0; j < m_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < m_tiles) {  // the next tile's copy runs under this tile's work
-      const int m1 = (j + 1) * kM;
-      load_rows<D, kM, kThreadsM>(Qs + (buf ^ 1) * kQTile, qb, a.qs.s, m1, seq);
-      load_rows<D, kM, kThreadsM>(dOs + (buf ^ 1) * kQTile, gb, a.dos.s, m1, seq);
-      load_stats<kM, kThreadsM>(Ls + (buf ^ 1) * kM, lse, m1, seq);
-      load_stats<kM, kThreadsM>(Dl + (buf ^ 1) * kM, delta, m1, seq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + buf * kQTile;
-    const bf16* dOt = dOs + buf * kQTile;
-    const float* Lt = Ls + buf * kM;
-    const float* Dt = Dl + buf * kM;
+  const int wg = threadIdx.x / 128;
+  const int64_t stat0 = (static_cast<int64_t>(batch) * a.heads + head) * seq;
 
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: this warp's K/V rows by the tile's q rows.
-    // K and V, the A operands, are read from shared memory at each k step:
-    // held in registers for the whole sweep, with two bands' dk/dv sums,
-    // they would pass 255 registers.
-    float st[kBands][kNTiles][4], dpt[kBands][kNTiles][4];
-#pragma unroll
-    for (int i = 0; i < kBands; ++i)
-#pragma unroll
-      for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[i][n][e] = dpt[i][n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      uint32_t ka[kBands][4], va[kBands][4];
-#pragma unroll
-      for (int i = 0; i < kBands; ++i) {
-        ldmatrix_x4(ka[i], a_ptr(Ks, kStride, (warp * kBands + i) * 16, kk * 16, lane));
-        ldmatrix_x4(va[i], a_ptr(Vs, kStride, (warp * kBands + i) * 16, kk * 16, lane));
-      }
-#pragma unroll
-      for (int np = 0; np < kNTiles / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, b_ptr_nk(Qt, kStride, np * 16, kk * 16, lane));
-#pragma unroll
-        for (int i = 0; i < kBands; ++i) {
-          mma(st[i][2 * np], ka[i], b[0], b[1]);
-          mma(st[i][2 * np + 1], ka[i], b[2], b[3]);
-        }
-        ldmatrix_x4(b, b_ptr_nk(dOt, kStride, np * 16, kk * 16, lane));
-#pragma unroll
-        for (int i = 0; i < kBands; ++i) {
-          mma(dpt[i][2 * np], va[i], b[0], b[1]);
-          mma(dpt[i][2 * np + 1], va[i], b[2], b[3]);
-        }
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty + 8 * s, 128 * kConsumers);
     }
-
-    // Pᵀ and dSᵀ in place; element e of tile n is q row n·8 + 2t + e % 2
-    const int m0 = j * kM;
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1);
-        const bool in = m0 + c < seq;
-#pragma unroll
-        for (int i = 0; i < kBands; ++i) {
-          const float p = in ? exp2_approx(fmaf(st[i][n][e], a.scale_log2e, -Lt[c])) : 0.f;
-          st[i][n][e] = p;
-          dpt[i][n][e] = p * (dpt[i][n][e] - Dt[c]);
-        }
-      }
-
-    // dV += bf16(Pᵀ)·dO and dK += bf16(dSᵀ)·Q over the tile's q rows
-#pragma unroll
-    for (int kk = 0; kk < kM / 16; ++kk) {
-      uint32_t pa[kBands][4], da[kBands][4];
-#pragma unroll
-      for (int i = 0; i < kBands; ++i) {
-        pack_a(pa[i], st[i][2 * kk], st[i][2 * kk + 1]);
-        pack_a(da[i], dpt[i][2 * kk], dpt[i][2 * kk + 1]);
-      }
-#pragma unroll
-      for (int dn = 0; dn < kDTiles / 2; ++dn) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, b_ptr_kn(dOt, kStride, kk * 16, dn * 16, lane));
-#pragma unroll
-        for (int i = 0; i < kBands; ++i) {
-          mma(dv[i][2 * dn], pa[i], b[0], b[1]);
-          mma(dv[i][2 * dn + 1], pa[i], b[2], b[3]);
-        }
-        ldmatrix_x4_trans(b, b_ptr_kn(Qt, kStride, kk * 16, dn * 16, lane));
-#pragma unroll
-        for (int i = 0; i < kBands; ++i) {
-          mma(dk[i][2 * dn], da[i], b[0], b[1]);
-          mma(dk[i][2 * dn + 1], da[i], b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();  // this buffer is refilled on the next iteration
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  bf16* dkb = a.dk + batch * a.dks.b + head * a.dks.h;
-  bf16* dvb = a.dv + batch * a.dvs.b + head * a.dvs.h;
+  if (wg == kConsumers) {
+    setmaxnreg_dec<Budget::kProducerRegs>();
+    if (threadIdx.x % 128 < 32) {  // the producer warpgroup's first warp
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        prefetch_tensormap(&tq);
+        prefetch_tensormap(&tdo);
+        mbar_arrive_expect_tx(kv_full, 2 * Tiling::kOwnBytes);
+        Tl::load(sk, kRowsB, &tk, kv_full, head, batch, n0);
+        Tl::load(sv, kRowsB, &tv, kv_full, head, batch, n0);
+      }
+      for (int j = 0; j < m_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(empty + 8 * s, ((j / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full + 8 * s, 2 * Tiling::kStreamBytes);
+          Tl::load(sq + s * Tiling::kStreamBytes, kM, &tq, full + 8 * s, head, batch, j * kM);
+          Tl::load(sdo + s * Tiling::kStreamBytes, kM, &tdo, full + 8 * s, head, batch, j * kM);
+        }
+        // the tile's lse and δ rows, zeros past `seq`; each lane's arrival
+        // releases its own stores
+        float* st = stats + s * 2 * kM;
+        for (int i = lane; i < kM; i += 32) {
+          const int row = j * kM + i;
+          st[i] = row < seq ? a.lse[stat0 + row] : 0.f;
+          st[kM + i] = row < seq ? a.delta[stat0 + row] : 0.f;
+        }
+        mbar_arrive(full + 8 * s);
+      }
+    }
+  } else {
+    setmaxnreg_inc<Budget::kConsumerRegs>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32, t = lane & 3;
+    float dk[D / 2], dv[D / 2], st[kSub / 2], dpt[kSub / 2];
 #pragma unroll
-  for (int i = 0; i < kBands; ++i)
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSub / 2; ++i) st[i] = dpt[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int j = 0; j < m_tiles; ++j) {
+      const int s = j % kStages;
+      const uint32_t qt = sq + s * Tiling::kStreamBytes, dot = sdo + s * Tiling::kStreamBytes;
+      const float* lt = stats + s * 2 * kM;
+      const float* dt = lt + kM;
+      mbar_wait(full + 8 * s, (j / kStages) & 1);
+#pragma unroll
+      for (int h = 0; h < kM / kSub; ++h) {
+        if (j * kM + kSub * h >= seq) break;  // past the sequence: p = 0, nothing to add
+        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: this warpgroup's 64 K/V rows by the
+        // tile's q rows kSub·h..kSub·h + kSub − 1
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<kSub>(st, Tl::desc_k(sk, kRowsB, 64 * wg, kk),
+                         Tl::desc_k(qt, kM, kSub * h, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<kSub>(dpt, Tl::desc_k(sv, kRowsB, 64 * wg, kk),
+                         Tl::desc_k(dot, kM, kSub * h, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        // Pᵀ and dSᵀ in place; element i is q row (column) kSub·h + 8·(i / 4) + 2t + i % 2
+        const int m0 = j * kM;
+#pragma unroll
+        for (int i = 0; i < kSub / 2; ++i) {
+          const int c = kSub * h + 8 * (i >> 2) + 2 * t + (i & 1);
+          const float p = m0 + c < seq ? exp2_approx(fmaf(st[i], a.scale_log2e, -lt[c])) : 0.f;
+          st[i] = p;
+          dpt[i] = p * (dpt[i] - dt[c]);
+        }
+        uint32_t pa[kSub / 16][4], da[kSub / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kSub / 16; ++kk) {
+          pack_a(pa[kk], &st[8 * kk], &st[8 * kk + 4]);
+          pack_a(da[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);
+        }
+
+        // dV += bf16(Pᵀ)·dO and dK += bf16(dSᵀ)·Q over those q rows
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSub / 16; ++kk)
+          wgmma_rs<D>(dv, pa[kk], dot, kM, kSub / 16 * h + kk);
+#pragma unroll
+        for (int kk = 0; kk < kSub / 16; ++kk)
+          wgmma_rs<D>(dk, da[kk], qt, kM, kSub / 16 * h + kk);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pa);
+        fence_regs(da);
+      }
+      mbar_arrive(empty + 8 * s);
+    }
+
+    bf16* dkb = a.dk + batch * a.dks.b + head * a.dks.h;
+    bf16* dvb = a.dv + batch * a.dvs.b + head * a.dvs.h;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = n0 + (warp * kBands + i) * 16 + (lane >> 2) + 8 * r;
+      const int row = n0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * r;
       if (row >= seq) continue;
 #pragma unroll
       for (int d = 0; d < kDTiles; ++d) {
         const int col = d * 8 + 2 * t;
         *reinterpret_cast<uint32_t*>(dkb + row * a.dks.s + col) =
-            pack_bf16(dk[i][d][2 * r] * a.scale, dk[i][d][2 * r + 1] * a.scale);
+            pack_bf16(dk[4 * d + 2 * r] * a.scale, dk[4 * d + 2 * r + 1] * a.scale);
         *reinterpret_cast<uint32_t*>(dvb + row * a.dvs.s + col) =
-            pack_bf16(dv[i][d][2 * r], dv[i][d][2 * r + 1]);
+            pack_bf16(dv[4 * d + 2 * r], dv[4 * d + 2 * r + 1]);
       }
     }
+  }
 }
 
-template <int D>
-__global__ void __launch_bounds__(MmaTiling<D>::kThreads) dq_mma_kernel(Args<bf16> a) {
-  using namespace fa_mma;
-  using Tiling = MmaTiling<D>;
-  constexpr int kThreadsM = Tiling::kThreads;
-  constexpr int kBands = Tiling::kBands;
-  constexpr int kStride = D + 8;
-  constexpr int kN = Tiling::kStream;  // K/V rows per streamed tile
-  constexpr int kKVTile = kN * kStride;
-  constexpr int kKSteps = D / 16;
-  constexpr int kNTiles = kN / 8;
+template <int D, int kConsumers>
+__global__ void __launch_bounds__(128 * (kConsumers + 1), kConsumers == 1 ? 2 : 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                Args<bf16> a) {
+  using namespace fa_sm90;
+  using Tiling = BwdTiling<D, kConsumers>;
+  using Tl = typename Tiling::Tile;
+  using Budget = typename Tiling::Budget;
+  constexpr int kStages = Tiling::kStages;
+  constexpr int kRowsB = Tiling::kRows;
+  constexpr int kN = Tiling::kStream;   // K/V rows a streamed tile
+  constexpr int kSub = Tiling::kSub;
   constexpr int kDTiles = D / 8;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + Tiling::kRows * kStride;
-  bf16* Ks = dOs + Tiling::kRows * kStride;  // [2][kN][kStride]
-  bf16* Vs = Ks + 2 * kKVTile;               // [2][kN][kStride]
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sdo = sq + Tiling::kOwnBytes;
+  const uint32_t sk = sdo + Tiling::kOwnBytes;                 // [kStages]
+  const uint32_t sv = sk + kStages * Tiling::kStreamBytes;     // [kStages]
+  const uint32_t qd_full = smem_u32(bars);
+  const uint32_t k_full = qd_full + 8;  // + 8·stage
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3;
-  const int m0 = blockIdx.x * Tiling::kRows;
+  const int m0 = blockIdx.x * kRowsB;
   const int head = blockIdx.y, batch = blockIdx.z;
   const int seq = a.seq;
-  const bf16* kb = a.k + batch * a.ks.b + head * a.ks.h;
-  const bf16* vb = a.v + batch * a.vs.b + head * a.vs.h;
-  const int64_t stat0 = (static_cast<int64_t>(batch) * a.heads + head) * seq;
-
-  load_rows<D, Tiling::kRows, kThreadsM>(Qs, a.q + batch * a.qs.b + head * a.qs.h, a.qs.s, m0, seq);
-  load_rows<D, Tiling::kRows, kThreadsM>(dOs, a.dout + batch * a.dos.b + head * a.dos.h, a.dos.s, m0, seq);
-  load_rows<D, kN, kThreadsM>(Ks, kb, a.ks.s, 0, seq);
-  load_rows<D, kN, kThreadsM>(Vs, vb, a.vs.s, 0, seq);
-  cp_async_commit();
-
-  // rows g and g + 8 of each of this warp's bands, and their statistics
-  float lse[kBands][2], delta[kBands][2];
-#pragma unroll
-  for (int i = 0; i < kBands; ++i)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = m0 + (warp * kBands + i) * 16 + (lane >> 2) + 8 * r;
-      lse[i][r] = row < seq ? a.lse[stat0 + row] : 0.f;
-      delta[i][r] = row < seq ? a.delta[stat0 + row] : 0.f;
-    }
-
-  uint32_t qf[kBands][kKSteps][4], gf[kBands][kKSteps][4];
-  float dq[kBands][kDTiles][4];
-#pragma unroll
-  for (int i = 0; i < kBands; ++i)
-#pragma unroll
-    for (int d = 0; d < kDTiles; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[i][d][e] = 0.f;
-
   const int n_tiles = (seq + kN - 1) / kN;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_rows<D, kN, kThreadsM>(Ks + (buf ^ 1) * kKVTile, kb, a.ks.s, (j + 1) * kN, seq);
-      load_rows<D, kN, kThreadsM>(Vs + (buf ^ 1) * kKVTile, vb, a.vs.s, (j + 1) * kN, seq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int i = 0; i < kBands; ++i)
-#pragma unroll
-        for (int kk = 0; kk < kKSteps; ++kk) {
-          ldmatrix_x4(qf[i][kk], a_ptr(Qs, kStride, (warp * kBands + i) * 16, kk * 16, lane));
-          ldmatrix_x4(gf[i][kk], a_ptr(dOs, kStride, (warp * kBands + i) * 16, kk * 16, lane));
-        }
-    }
-    const bf16* Kt = Ks + buf * kKVTile;
-    const bf16* Vt = Vs + buf * kKVTile;
+  const int wg = threadIdx.x / 128;
 
-    // S = Q·Kᵀ and dP = dO·Vᵀ for this warp's q rows
-    float s[kBands][kNTiles][4], dp[kBands][kNTiles][4];
-#pragma unroll
-    for (int i = 0; i < kBands; ++i)
-#pragma unroll
-      for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][n][e] = dp[i][n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk)
-#pragma unroll
-      for (int np = 0; np < kNTiles / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, b_ptr_nk(Kt, kStride, np * 16, kk * 16, lane));
-#pragma unroll
-        for (int i = 0; i < kBands; ++i) {
-          mma(s[i][2 * np], qf[i][kk], b[0], b[1]);
-          mma(s[i][2 * np + 1], qf[i][kk], b[2], b[3]);
-        }
-        ldmatrix_x4(b, b_ptr_nk(Vt, kStride, np * 16, kk * 16, lane));
-#pragma unroll
-        for (int i = 0; i < kBands; ++i) {
-          mma(dp[i][2 * np], gf[i][kk], b[0], b[1]);
-          mma(dp[i][2 * np + 1], gf[i][kk], b[2], b[3]);
-        }
-      }
-
-    // dS in place of S; element e of tile n is K/V row n0 + n·8 + 2t + e % 2
-    const int n0 = j * kN;
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool in = n0 + n * 8 + 2 * t + (e & 1) < seq;
-#pragma unroll
-        for (int i = 0; i < kBands; ++i) {
-          const int r = e >> 1;
-          const float p = in ? exp2_approx(fmaf(s[i][n][e], a.scale_log2e, -lse[i][r])) : 0.f;
-          s[i][n][e] = p * (dp[i][n][e] - delta[i][r]);
-        }
-      }
-
-    // dQ += bf16(dS)·K over the tile's K rows
-#pragma unroll
-    for (int kk = 0; kk < kN / 16; ++kk) {
-      uint32_t da[kBands][4];
-#pragma unroll
-      for (int i = 0; i < kBands; ++i) pack_a(da[i], s[i][2 * kk], s[i][2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < kDTiles / 2; ++dn) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, b_ptr_kn(Kt, kStride, kk * 16, dn * 16, lane));
-#pragma unroll
-        for (int i = 0; i < kBands; ++i) {
-          mma(dq[i][2 * dn], da[i], b[0], b[1]);
-          mma(dq[i][2 * dn + 1], da[i], b[2], b[3]);
-        }
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * kConsumers);
     }
-    __syncthreads();  // this buffer is refilled on the next iteration
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  bf16* dqb = a.dq + batch * a.dqs.b + head * a.dqs.h;
-#pragma unroll
-  for (int i = 0; i < kBands; ++i)
+  if (wg == kConsumers) {
+    setmaxnreg_dec<Budget::kProducerRegs>();
+    if (threadIdx.x % 128 == 0) {
+      prefetch_tensormap(&tk);
+      prefetch_tensormap(&tv);
+      mbar_arrive_expect_tx(qd_full, 2 * Tiling::kOwnBytes);
+      Tl::load(sq, kRowsB, &tq, qd_full, head, batch, m0);
+      Tl::load(sdo, kRowsB, &tdo, qd_full, head, batch, m0);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(empty + 8 * s, ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full + 8 * s, Tiling::kStreamBytes);
+        Tl::load(sk + s * Tiling::kStreamBytes, kN, &tk, k_full + 8 * s, head, batch, j * kN);
+        mbar_arrive_expect_tx(v_full + 8 * s, Tiling::kStreamBytes);
+        Tl::load(sv + s * Tiling::kStreamBytes, kN, &tv, v_full + 8 * s, head, batch, j * kN);
+      }
+    }
+  } else {
+    setmaxnreg_inc<Budget::kConsumerRegs>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32, t = lane & 3;
+    // rows g and g + 8 of this warp's band, and their statistics
+    const int64_t stat0 = (static_cast<int64_t>(batch) * a.heads + head) * seq;
+    float lse[2], delta[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = m0 + (warp * kBands + i) * 16 + (lane >> 2) + 8 * r;
+      const int row = m0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * r;
+      lse[r] = row < seq ? a.lse[stat0 + row] : 0.f;
+      delta[r] = row < seq ? a.delta[stat0 + row] : 0.f;
+    }
+    float dq[D / 2], sc[kSub / 2], dp[kSub / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSub / 2; ++i) sc[i] = dp[i] = 0.f;
+
+    mbar_wait(qd_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const uint32_t kt = sk + s * Tiling::kStreamBytes, vt = sv + s * Tiling::kStreamBytes;
+      mbar_wait(k_full + 8 * s, parity);
+      mbar_wait(v_full + 8 * s, parity);
+#pragma unroll
+      for (int h = 0; h < kN / kSub; ++h) {
+        if (j * kN + kSub * h >= seq) break;  // past the sequence: p = 0, nothing to add
+        // S = Q·Kᵀ and dP = dO·Vᵀ for this warpgroup's 64 q rows and the
+        // tile's K/V rows kSub·h..kSub·h + kSub − 1
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<kSub>(sc, Tl::desc_k(sq, kRowsB, 64 * wg, kk),
+                         Tl::desc_k(kt, kN, kSub * h, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<kSub>(dp, Tl::desc_k(sdo, kRowsB, 64 * wg, kk),
+                         Tl::desc_k(vt, kN, kSub * h, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // dS in place of S; element i is K/V row n0 + 8·(i / 4) + 2t + i % 2,
+        // q row g + 8·((i / 2) % 2)
+        const int n0 = j * kN + kSub * h;
+#pragma unroll
+        for (int i = 0; i < kSub / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          const bool in = n0 + 8 * (i >> 2) + 2 * t + (i & 1) < seq;
+          const float p = in ? exp2_approx(fmaf(sc[i], a.scale_log2e, -lse[r])) : 0.f;
+          sc[i] = p * (dp[i] - delta[r]);
+        }
+        uint32_t da[kSub / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kSub / 16; ++kk) pack_a(da[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+
+        // dQ += bf16(dS)·K over those K rows, K read MN-major
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSub / 16; ++kk)
+          wgmma_rs<D>(dq, da[kk], kt, kN, kSub / 16 * h + kk);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(dq);
+        fence_regs(da);
+      }
+      mbar_arrive(empty + 8 * s);
+    }
+
+    bf16* dqb = a.dq + batch * a.dqs.b + head * a.dqs.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * r;
       if (row >= seq) continue;
 #pragma unroll
       for (int d = 0; d < kDTiles; ++d)
         *reinterpret_cast<uint32_t*>(dqb + row * a.dqs.s + d * 8 + 2 * t) =
-            pack_bf16(dq[i][d][2 * r] * a.scale, dq[i][d][2 * r + 1] * a.scale);
+            pack_bf16(dq[4 * d + 2 * r] * a.scale, dq[4 * d + 2 * r + 1] * a.scale);
     }
+  }
 }
 
 // δ, one warp per score row
@@ -765,25 +774,46 @@ cudaError_t launch_f32(const Args<float>& a, cudaStream_t stream) {
   return launch_one(dq_kernel<float, D>, a, grid, kThreads, dq_smem_bytes<D>(), stream);
 }
 
-template <int D>
-cudaError_t launch_bf16(const Args<bf16>& a, cudaStream_t stream) {
-  cudaError_t err = launch_delta<bf16, D>(a, stream);
-  if (err != cudaSuccess) return err;
-  using Tiling = MmaTiling<D>;
+template <int D, int kConsumers>
+cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                         const CUtensorMap& tdo, const Args<bf16>& a, cudaStream_t stream) {
+  using Tiling = BwdTiling<D, kConsumers>;
   const dim3 grid((a.seq + Tiling::kRows - 1) / Tiling::kRows, a.heads, a.batch);
-  // dk/dv also stage the streamed tiles' lse and δ, [2][kStream] fp32 each
-  err = launch_one(dkdv_mma_kernel<D>, a, grid, Tiling::kThreads,
-                   Tiling::kTiles + sizeof(float) * 4 * Tiling::kStream, stream);
+  using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, Args<bf16>);
+  const Kernel kernels[2] = {dkdv_wgmma_kernel<D, kConsumers>, dq_wgmma_kernel<D, kConsumers>};
+  for (const Kernel kernel : kernels) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(Tiling::kSmem));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, Tiling::Budget::kThreads, Tiling::kSmem, stream>>>(tq, tk, tv, tdo, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// δ, then one tensor map per streamed operand and the two passes at this
+// sequence length's tiling
+template <int D>
+int launch_bf16(const Args<bf16>& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = fa_sm90::bind_context();
+  if (err == 0) err = fa_sm90::encode_bshd(&tq, a.q, a.batch, a.seq, a.heads, D, a.qs);
+  if (err == 0) err = fa_sm90::encode_bshd(&tk, a.k, a.batch, a.seq, a.heads, D, a.ks);
+  if (err == 0) err = fa_sm90::encode_bshd(&tv, a.v, a.batch, a.seq, a.heads, D, a.vs);
+  if (err == 0) err = fa_sm90::encode_bshd(&tdo, a.dout, a.batch, a.seq, a.heads, D, a.dos);
+  if (err != 0) return err;
+  err = launch_delta<bf16, D>(a, stream);
   if (err != cudaSuccess) return err;
-  return launch_one(dq_mma_kernel<D>, a, grid, Tiling::kThreads, Tiling::kTiles, stream);
+  if (a.seq <= kShortSeq) return launch_wgmma<D, 1>(tq, tk, tv, tdo, a, stream);
+  return launch_wgmma<D, 2>(tq, tk, tv, tdo, a, stream);
 }
 
 template <typename T>
-cudaError_t run(const void* q, const void* k, const void* v, const void* o,
-                const void* dout, const float* lse, float* delta, void* dq,
-                void* dk, void* dv, int batch, int seq, int heads, int dim,
-                const int64_t* st, float scale, float scale_log2e,
-                cudaStream_t stream) {
+int run(const void* q, const void* k, const void* v, const void* o, const void* dout,
+        const float* lse, float* delta, void* dq, void* dk, void* dv, int batch, int seq,
+        int heads, int dim, const int64_t* st, float scale, float scale_log2e,
+        cudaStream_t stream) {
   auto strides = [st](int i) { return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; };
   Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
             static_cast<const T*>(v), static_cast<const T*>(o),
@@ -814,9 +844,10 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* o,
 // (batch, seq, head) strides of q, k, v, o, dout, dq, dk, dv in that order;
 // for bfloat16 the base pointers must be 16-byte aligned and the strides
 // multiples of 8. `lse` is the forward's contiguous fp32 [batch, heads, seq];
-// `delta` is scratch of the same shape. Returns the first failing launch's
-// cudaError_t (0 = all three launched); the kernels' own faults show at the
-// next synchronisation.
+// `delta` is scratch of the same shape. Returns 0 when all three kernels
+// launched, the first failing launch's cudaError_t, or (bfloat16)
+// fa_sm90::kEncodeError + the CUresult of a tensor-map encode that failed;
+// the kernels' own faults show at the next synchronisation.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const float* lse, float* delta, void* dq,
@@ -827,14 +858,11 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
   if (batch <= 0 || seq <= 0 || heads <= 0 || batch > 65535 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (dtype == 0)
-    err = run<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, seq, heads,
-                     dim, strides, scale, scale_log2e, st);
-  else if (dtype == 1)
-    err = run<bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, seq, heads,
-                    dim, strides, scale, scale_log2e, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+    return run<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, seq, heads, dim,
+                      strides, scale, scale_log2e, st);
+  if (dtype == 1)
+    return run<bf16>(q, k, v, o, dout, lse, delta, dq, dk, dv, batch, seq, heads, dim,
+                     strides, scale, scale_log2e, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,5 @@
 // Non-causal flash-attention forward for Hopper (sm_90a): bf16 on the tensor
-// cores, fp32 on scalar FMAs.
+// cores through `wgmma` fed by TMA, fp32 on scalar FMAs.
 //
 // Replaces the TPU Pallas kernels `_flash_fused_heads` (:123, its
 // pallas_call at :130) and `_flash_bh` (:154, pallas_call :164) of
@@ -11,33 +11,69 @@
 //   o = (p rounded to v's dtype)·v, fp32 sums;  out = o / l in q's dtype
 //
 // The TPU kernel held the whole K/V of a head in VMEM. A block here has at
-// most 227 KB of shared memory, so it streams 64-row K/V tiles and keeps an
-// online softmax (running max m and sum l in fp32, the output rescaled by
+// most 227 KB of shared memory, so it streams K/V tiles and keeps an online
+// softmax (running max m and sum l in fp32, the output rescaled by
 // exp2(m_old − m_new) when the max moves).
 //
 // Bound: at (B, S, H, D) = (16, 1024, 6, 64) bf16 the call does 4·B·H·S²·D =
 // 25.8 GFLOP over 50 MB (q, k, v in, o out), ~515 flops per byte, above the
 // H100's ~295 flop/byte bf16 ridge: compute-bound, 0.0261 ms at the 989
 // TFLOP/s bf16 dense peak (chip_smoke.py's bound, H100 80GB HBM3 at 700 W).
-// Only the tensor cores come near it, so the bf16 path is built on them:
+// Only `wgmma` reaches the tensor cores' full rate, so the bf16 path is
+// built on it (helpers in flash_sm90.cuh):
 //
-// bf16, flash_fwd_mma_kernel: the FA2 design. One block per (q tile, head,
-// batch); each warp owns 16 q rows and holds them as `ldmatrix`'d A
-// fragments in registers for the whole K/V sweep. K/V tiles of 64 rows
-// stream through a two-deep `cp.async` ring (the next tile's copy runs under
-// this tile's products), shared by all warps of the block: 8 warps (128 q
-// rows) at D ≤ 64, which halves the K/V traffic from L2 per q row against 4
-// warps; 4 at D = 128 (register budget). S = Q·Kᵀ and O += P·V are
-// `mma.sync.m16n8k16` (bf16 operands, fp32 accumulators); K enters through
-// `ldmatrix`, V through `ldmatrix.trans`. The online softmax runs on the
-// accumulator fragments: each thread holds parts of two rows, the row max
-// reduces over the quad with `__shfl_xor_sync` (the sum once, at the end),
-// c and the max enter in one FFMA and exp2 is one `ex2.approx` (by the
-// published rates an SM does 16 exp2 a clock against ~4096 bf16 tensor-core
-// flops, so at D = 64 a score's exp2 costs about what its 256 flops do). p goes from the S accumulators, packed to
-// bf16, straight into the A fragment of P·V: scores and probabilities never
-// touch shared memory. The tiling was chosen by timing the alternatives on
-// the card (PERF.md, PR 3's tilings table).
+// bf16, flash_fwd_wgmma_kernel<D, kBlockN>: warp-specialised. One block per
+// (64 q rows, head, batch) holds one consumer warpgroup and one producer
+// warpgroup, two blocks an SM. The producer's first thread loads the Q tile
+// once by TMA and streams the K and V tiles of kBlockN rows through a ring of
+// 2 shared-memory stages; each stage has a "full" barrier for K and one for V
+// (TMA completes them with its byte count) and an "empty" barrier on which
+// every consumer thread arrives when its products have read the stage, so
+// the producer never overwrites a stage in use. `setmaxnreg` drops the
+// producers to 24 registers and gives the consumers the 232 they free. The
+// consumer warpgroup computes S = Q·Kᵀ as `wgmma` m64 x kBlockN with A = Q and
+// B = K both in shared memory, runs the online softmax on the fp32
+// accumulators (each thread holds parts of two rows; the row max reduces over
+// the quad with two `__shfl_xor_sync`, the sum once, at the end), packs p to
+// bf16 straight from the S accumulators into the register A operand of
+// O += P·V (the accumulator and A-fragment layouts coincide, flash_sm90.cuh),
+// and reads B = V from shared memory as MN-major, the transpose bit set. c
+// and the max enter in one FFMA and exp2 is one `ex2.approx`. The other block
+// on the SM runs its products while this one runs its softmax.
+//   Tilings: kBlockN = 128 at D ≤ 64 and seq > 64 (half the barrier round
+//   trips of 64-row tiles); 64 at seq ≤ 64 (the UNets' 16 and 64 tokens,
+//   where a 128-row tile would be mostly padding; `kShortSeq` is that one
+//   threshold) and at D = 128 (a 128-column score tile, the output and P
+//   would spill the consumers' registers).
+//   Measured on the card and not kept (PERF.md): two consumer
+//   warpgroups a block sharing the K/V tiles, with or without FA3's
+//   ping-pong between them or the next tile's S product issued before this
+//   tile's softmax, and a 3-stage ring; each was slower or no faster at the
+//   DiT's shape than two one-warpgroup blocks an SM.
+//
+// What the design does about each hazard:
+// - Strided q/k/v: one 4-D tensor map per operand over (D, H, S, B) with the
+//   view's byte strides (encode_bshd), so the thirds of the DiT's fused qkv
+//   projection load without a copy; TMA needs a 16-byte aligned base and
+//   16-byte multiple strides, the wrapper's `_aligned16` rule.
+// - Swizzle against D: a box is at most 64 bf16 wide (the 128-byte
+//   swizzle's limit), so a D = 128 tile is two boxes and a D = 32 tile takes
+//   the 64-byte swizzle; the `wgmma` descriptors use the same mode and
+//   offsets (Tile<D> in flash_sm90.cuh), every box 1024-byte aligned.
+// - Ragged S: TMA zero-fills rows past `seq`, and a zero K row scores 0, so
+//   columns ≥ seq are set to −inf before the softmax; q rows past `seq` are
+//   computed on zeros and never stored.
+// - Async ordering: `wgmma.fence` before each batch of products (the
+//   accumulators and P were written by ordinary instructions), then
+//   commit_group / wait_group 0, then the registers are tied past the wait
+//   (fence_regs); each ring slot's barriers are waited on with their phase
+//   parity; barrier waits trap after ~20 s instead of hanging.
+// - Tensor maps are encoded on the host at each call (3 a call) and passed
+//   as `const __grid_constant__ CUtensorMap` parameters; an encode that
+//   fails returns kEncodeError + its CUresult and the wrapper raises.
+// - compute-sanitizer refuses the card's sandbox ("Device not supported"),
+//   so races are looked for by repetition: chip_smoke.py requires bit-equal
+//   outputs over repeated calls.
 //
 // Where the bf16 arithmetic differs from `_softmax_pv`: tensor-core operands
 // are bf16, so c multiplies the fp32 accumulator after the product instead of
@@ -53,15 +89,8 @@
 // ~3 digits, outside the 2e-5 tolerance), so fp32 keeps the scalar kernel:
 // 256 threads, thread (ty, tx) = (tid / 16, tid % 16) owns score rows
 // 4·ty..4·ty+3 and columns tx + 16·j of each 64×64 tile, tiles staged in
-// shared memory as fp32, q pre-scaled by c exactly as `_softmax_pv`.
-//
-// Layout: q, k, v are [B, S, H, D] views with a contiguous last dim; batch,
-// sequence and head strides are arguments, so the q/k/v thirds of a fused
-// qkv projection go in without a copy (the bf16 path needs 16-byte aligned
-// bases and strides, which the thirds of the DiT's qkv meet; the wrapper
-// copies a tensor that does not). The ragged last q and K/V tiles are masked
-// (copies past `seq` zero-fill, scores past it are −inf), so S needs no
-// alignment.
+// shared memory as fp32, q pre-scaled by c exactly as `_softmax_pv`; its
+// loads take the views' strides, and the ragged last tiles are masked.
 //
 // Row statistics for the backward: when `lse` is not null, the kernel also
 // writes the fp32 logsumexp of each score row in the log2 domain,
@@ -72,16 +101,18 @@
 // Built by nvcc into a shared library with a plain C entry point
 // (flash_attn_fwd) and bound with ctypes; no PyTorch headers.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_mma.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
-using fa_mma::bf16;
+using fa_sm90::bf16;
+using fa_sm90::Strides;
 
 constexpr int kBlockM = 64;   // q rows per block (fp32)
 constexpr int kBlockN = 64;   // k/v rows per tile (fp32)
@@ -101,10 +132,6 @@ template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
-
-struct Strides {
-  int64_t b, s, h;
-};
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -252,180 +279,198 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The bf16 tiling: kWarps warps of 16 q rows share each K/V tile of kBlockN
-// rows. Eight warps (128 rows) at D ≤ 64 halve the K/V traffic from L2 per q
-// row against four; at D = 128 the accumulators take ~230 registers, and
-// four warps keep two blocks on an SM.
-template <int D>
-struct MmaTiling {
-  static constexpr int kWarps = D <= 64 ? 8 : 4;
-  static constexpr int kRows = kWarps * 16;  // q rows per block
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr int kBlockN = 64;
-  static_assert(kBlockN % 16 == 0, "P·V steps over K/V rows in k16 slices");
-  // Qs [kRows][D+8], then K and V tiles [2][kBlockN][D+8] each, bf16
-  static constexpr size_t kSmem = sizeof(bf16) * (kRows + 4 * kBlockN) * (D + 8);
+// ---- bf16: the warp-specialised wgmma kernel (see the notes at the top)
+
+// sequences up to this many rows take 64-row K/V tiles
+constexpr int kShortSeq = 64;
+
+template <int D, int kBlockN_>
+struct FwdTiling {
+  using Tile = fa_sm90::Tile<D>;
+  using Budget = fa_sm90::Budget<1, 2>;   // one consumer warpgroup, two blocks an SM
+  static constexpr int kBlockN = kBlockN_;
+  static constexpr int kBlockM = 64;      // q rows per block
+  static constexpr int kStages = 2;       // K/V ring depth
+  static constexpr uint32_t kQBytes = Tile::bytes(kBlockM);
+  static constexpr uint32_t kKVBytes = Tile::bytes(kBlockN);
+  // Q, then the K and V stages; 1024 bytes of slack to align the tiles
+  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes;
+  // barriers: Q full, K full and V full for each stage, empty for each stage
+  static constexpr int kBars = 1 + 3 * kStages;
 };
 
-template <int D>
-__global__ void __launch_bounds__(MmaTiling<D>::kThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int seq, Strides qs, Strides ks,
-                     Strides vs, Strides os, float scale_log2e) {
-  using namespace fa_mma;
-  using Tiling = MmaTiling<D>;
-  constexpr int kThreadsM = Tiling::kThreads;
-  constexpr int kBlockN = Tiling::kBlockN;
-  constexpr int kStride = D + 8;
-  constexpr int kTile = kBlockN * kStride;
-  constexpr int kKSteps = D / 16;       // k16 steps of S = Q·Kᵀ
-  constexpr int kNTiles = kBlockN / 8;  // n8 tiles of a score row band
-  constexpr int kDTiles = D / 8;        // n8 tiles of the output
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + Tiling::kRows * kStride;  // [2][kBlockN][kStride]
-  bf16* Vs = Ks + 2 * kTile;                // [2][kBlockN][kStride]
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * Tiling::kRows;
-  const int head = blockIdx.y, batch = blockIdx.z;
-  const bf16* qb = q + batch * qs.b + head * qs.h;
-  const bf16* kb = k + batch * ks.b + head * ks.h;
-  const bf16* vb = v + batch * vs.b + head * vs.h;
-
-  load_rows<D, Tiling::kRows, kThreadsM>(Qs, qb, qs.s, q0, seq);
-  load_rows<D, kBlockN, kThreadsM>(Ks, kb, ks.s, 0, seq);
-  load_rows<D, kBlockN, kThreadsM>(Vs, vb, vs.s, 0, seq);
-  cp_async_commit();
-
-  uint32_t qf[kKSteps][4];
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  // rows g and g + 8 of this warp's band: running max of the unscaled
-  // scores, and this thread's part of the running sum (its quad's four parts
-  // add up at the end)
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  const int n_tiles = (seq + kBlockN - 1) / kBlockN;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {  // the next tile's copy runs under this tile's work
-      load_rows<D, kBlockN, kThreadsM>(Ks + (buf ^ 1) * kTile, kb, ks.s,
-                                       (j + 1) * kBlockN, seq);
-      load_rows<D, kBlockN, kThreadsM>(Vs + (buf ^ 1) * kTile, vb, vs.s,
-                                       (j + 1) * kBlockN, seq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        ldmatrix_x4(qf[kk], a_ptr(Qs, kStride, warp * 16, kk * 16, lane));
-    }
-    const bf16* Kt = Ks + buf * kTile;
-    const bf16* Vt = Vs + buf * kTile;
-
-    // S = Q·Kᵀ for this warp's 16 rows and the tile's 64 columns
-    float s[kNTiles][4];
+// The online softmax of one score tile in place, for rows g and g + 8 of a
+// warp's band (element i of the accumulator is in row (i / 2) % 2): columns
+// past `seq` score −inf (only the last tile has any); the row max m moves
+// (taken on the unscaled scores, c > 0) and alpha = exp2(c·(m_old − m_new))
+// rescales the running sum l here and the output at the caller; c enters
+// with the subtraction in one FFMA, p = exp2(c·s − c·m).
+template <int kBlockN>
+__device__ __forceinline__ void online_softmax(float (&sc)[kBlockN / 2], int n0, int seq,
+                                               float scale_log2e, int t, float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2]) {
+  using fa_sm90::exp2_approx;
+  constexpr int kNTiles = kBlockN / 8;  // n8 blocks of a score row band
+  if (n0 + kBlockN > seq) {
 #pragma unroll
     for (int n = 0; n < kNTiles; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk)
-#pragma unroll
-      for (int np = 0; np < kNTiles / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, b_ptr_nk(Kt, kStride, np * 16, kk * 16, lane));
-        mma(s[2 * np], qf[kk], b[0], b[1]);
-        mma(s[2 * np + 1], qf[kk], b[2], b[3]);
-      }
-
-    // columns past `seq` score −inf (only the last tile has any)
-    const int n0 = j * kBlockN;
-    if (n0 + kBlockN > seq) {
-#pragma unroll
-      for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (n0 + n * 8 + 2 * t + (e & 1) >= seq) s[n][e] = -INFINITY;
-    }
-
-    // online softmax; element e of a tile is in row e / 2 (g or g + 8). The
-    // max is taken on the unscaled scores (c > 0), and c enters with the
-    // subtraction in one FFMA: p = exp2(c·s − c·m).
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-    // every tile holds at least one unmasked column, so mx is finite and
-    // alpha is 0 on the first tile
-    float alpha[2], neg[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2_approx((m[r] - mx[r]) * scale_log2e);
-      neg[r] = -mx[r] * scale_log2e;
-      m[r] = mx[r];
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2_approx(fmaf(s[n][e], scale_log2e, neg[e >> 1]));
-        sum[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
-#pragma unroll
-    for (int d = 0; d < kDTiles; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[d][e] *= alpha[e >> 1];
-
-    // O += bf16(P)·V: the score accumulators are P·V's A fragments
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dp = 0; dp < kDTiles / 2; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, b_ptr_kn(Vt, kStride, kk * 16, dp * 16, lane));
-        mma(acc[2 * dp], pa, b[0], b[1]);
-        mma(acc[2 * dp + 1], pa, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled on the next iteration
+      for (int e = 0; e < 4; ++e)
+        if (n0 + n * 8 + 2 * t + (e & 1) >= seq) sc[4 * n + e] = -INFINITY;
   }
-
-  // o / l, once, stored in q's dtype; lse = c·m + log2(l)
-  bf16* ob = o + batch * os.b + head * os.h;
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < kNTiles; ++n) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * n], sc[4 * n + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+  }
+  // every tile holds at least one unmasked column, so mx is finite and
+  // alpha is 0 on the first tile
+  float neg[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
-    if (row >= seq) continue;
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = exp2_approx((m[r] - mx[r]) * scale_log2e);
+    neg[r] = -mx[r] * scale_log2e;
+    m[r] = mx[r];
+  }
+  float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int d = 0; d < kDTiles; ++d)
-      *reinterpret_cast<uint32_t*>(ob + row * os.s + d * 8 + 2 * t) =
-          pack_bf16(acc[d][2 * r] / l[r], acc[d][2 * r + 1] / l[r]);
-    if (lse != nullptr && t == 0)
-      lse[(static_cast<int64_t>(batch) * gridDim.y + head) * seq + row] =
-          m[r] * scale_log2e + log2f(l[r]);
+  for (int i = 0; i < kBlockN / 2; ++i) {
+    sc[i] = exp2_approx(fmaf(sc[i], scale_log2e, neg[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+}
+
+template <int D, int kBlockN>
+__global__ void __launch_bounds__(256, 2)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                       float* __restrict__ lse, int seq, Strides os, float scale_log2e) {
+  using namespace fa_sm90;
+  using Tiling = FwdTiling<D, kBlockN>;
+  using Tl = typename Tiling::Tile;
+  using Budget = typename Tiling::Budget;
+  constexpr int kStages = Tiling::kStages;
+  constexpr int kBlockM = Tiling::kBlockM;
+  constexpr int kDTiles = D / 8;  // n8 blocks of the output
+
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[Tiling::kBars];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + Tiling::kQBytes;              // [kStages] K tiles
+  const uint32_t sv = sk + kStages * Tiling::kKVBytes;   // [kStages] V tiles
+  const uint32_t q_full = smem_u32(bars);
+  const uint32_t k_full = q_full + 8;                    // + 8·stage
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
+
+  const int q0 = blockIdx.x * kBlockM;
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int n_tiles = (seq + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128);  // every consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // the producer warpgroup: its first thread keeps the ring full
+    setmaxnreg_dec<Budget::kProducerRegs>();
+    if (threadIdx.x == 128) {
+      prefetch_tensormap(&tq);
+      prefetch_tensormap(&tk);
+      prefetch_tensormap(&tv);
+      mbar_arrive_expect_tx(q_full, Tiling::kQBytes);
+      Tl::load(sq, kBlockM, &tq, q_full, head, batch, q0);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        // the stage's previous tile has been read (passes at once on round 0)
+        mbar_wait(empty + 8 * s, ((j / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full + 8 * s, Tiling::kKVBytes);
+        Tl::load(sk + s * Tiling::kKVBytes, kBlockN, &tk, k_full + 8 * s, head, batch,
+                 j * kBlockN);
+        mbar_arrive_expect_tx(v_full + 8 * s, Tiling::kKVBytes);
+        Tl::load(sv + s * Tiling::kKVBytes, kBlockN, &tv, v_full + 8 * s, head, batch,
+                 j * kBlockN);
+      }
+    }
+  } else {
+    // the consumer warpgroup
+    setmaxnreg_inc<Budget::kConsumerRegs>();
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, t = lane & 3;
+    float acc[D / 2], sc[kBlockN / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBlockN / 2; ++i) sc[i] = 0.f;
+    // rows g and g + 8 of this warp's band: running max of the unscaled
+    // scores, and this thread's part of the running sum (its quad's four
+    // parts add up at the end)
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const uint32_t kt = sk + s * Tiling::kKVBytes, vt = sv + s * Tiling::kKVBytes;
+
+      // S = Q·Kᵀ for the block's 64 rows and the tile's kBlockN columns
+      mbar_wait(k_full + 8 * s, parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kBlockN>(sc, Tl::desc_k(sq, kBlockM, 0, kk), Tl::desc_k(kt, kBlockN, 0, kk),
+                          kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+
+      online_softmax<kBlockN>(sc, j * kBlockN, seq, scale_log2e, t, m, l, alpha);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      // O += bf16(P)·V: the score accumulators are the A operand
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) pack_a(pa[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+      mbar_wait(v_full + 8 * s, parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) wgmma_rs<D>(acc, pa[kk], vt, kBlockN, kk);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_arrive(empty + 8 * s);  // this stage may be refilled
+    }
+
+    // o / l, once, stored in q's dtype; lse = c·m + log2(l)
+    bf16* ob = o + batch * os.b + head * os.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = q0 + 16 * warp + (lane >> 2) + 8 * r;
+      if (row >= seq) continue;
+#pragma unroll
+      for (int d = 0; d < kDTiles; ++d)
+        *reinterpret_cast<uint32_t*>(ob + row * os.s + d * 8 + 2 * t) =
+            pack_bf16(acc[4 * d + 2 * r] / l[r], acc[4 * d + 2 * r + 1] / l[r]);
+      if (lse != nullptr && t == 0)
+        lse[(static_cast<int64_t>(batch) * gridDim.y + head) * seq + row] =
+            m[r] * scale_log2e + log2f(l[r]);
+    }
   }
 }
 
@@ -447,29 +492,48 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int batch, int seq, int heads, Strides qs,
-                        Strides ks, Strides vs, Strides os, float scale_log2e,
-                        cudaStream_t stream) {
-  using Tiling = MmaTiling<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Tiling::kSmem));
+
+template <int D, int kBlockN>
+cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                         void* o, float* lse, int batch, int seq, int heads, Strides os,
+                         float scale_log2e, cudaStream_t stream) {
+  using Tiling = FwdTiling<D, kBlockN>;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, kBlockN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(Tiling::kSmem));
   if (err != cudaSuccess) return err;
-  dim3 grid((seq + Tiling::kRows - 1) / Tiling::kRows, heads, batch);
-  flash_fwd_mma_kernel<D><<<grid, Tiling::kThreads, Tiling::kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, seq, qs, ks, vs,
-      os, scale_log2e);
+  dim3 grid((seq + Tiling::kBlockM - 1) / Tiling::kBlockM, heads, batch);
+  flash_fwd_wgmma_kernel<D, kBlockN><<<grid, Tiling::Budget::kThreads, Tiling::kSmem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, seq, os, scale_log2e);
   return cudaGetLastError();
 }
 
+// one tensor map per operand, then the tiling for this sequence length
 template <int D>
-cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
-                   void* o, float* lse, int batch, int seq, int heads,
-                   Strides qs, Strides ks, Strides vs, Strides os, float c,
-                   cudaStream_t st) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                int seq, int heads, Strides qs, Strides ks, Strides vs, Strides os,
+                float scale_log2e, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = fa_sm90::bind_context();
+  if (err == 0) err = fa_sm90::encode_bshd(&tq, q, batch, seq, heads, D, qs);
+  if (err == 0) err = fa_sm90::encode_bshd(&tk, k, batch, seq, heads, D, ks);
+  if (err == 0) err = fa_sm90::encode_bshd(&tv, v, batch, seq, heads, D, vs);
+  if (err != 0) return err;
+  // 128-row K/V tiles halve the barrier round trips; at D = 128 their
+  // scores, the output and P would spill the consumers' registers
+  if constexpr (D == 128) {
+    return launch_wgmma<D, 64>(tq, tk, tv, o, lse, batch, seq, heads, os, scale_log2e, stream);
+  } else {
+    if (seq <= kShortSeq)
+      return launch_wgmma<D, 64>(tq, tk, tv, o, lse, batch, seq, heads, os, scale_log2e, stream);
+    return launch_wgmma<D, 128>(tq, tk, tv, o, lse, batch, seq, heads, os, scale_log2e, stream);
+  }
+}
+
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int seq, int heads, Strides qs, Strides ks, Strides vs, Strides os,
+           float c, cudaStream_t st) {
   if (dtype == 0)
     return launch_f32<D>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, c, st);
   if (dtype == 1)
@@ -481,9 +545,10 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; for bfloat16
 // the base pointers must be 16-byte aligned and the strides multiples of 8.
-// `lse` is null or a contiguous fp32 [batch, heads, seq]. Returns the
-// cudaError_t of the launch (0 = launched); the kernel's own faults show at
-// the next synchronisation.
+// `lse` is null or a contiguous fp32 [batch, heads, seq]. Returns 0 when the
+// kernel launched, the launch's cudaError_t, or (bfloat16)
+// fa_sm90::kEncodeError + the CUresult of a tensor-map encode that failed;
+// the kernel's own faults show at the next synchronisation.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, float* lse, int dtype, int batch, int seq,
                               int heads, int dim, int64_t q_sb, int64_t q_ss,
@@ -496,12 +561,10 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (dim) {
-    case 32: err = launch<32>(dtype, q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, scale_log2e, st); break;
-    case 64: err = launch<64>(dtype, q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, scale_log2e, st); break;
-    case 128: err = launch<128>(dtype, q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, scale_log2e, st); break;
-    default: err = cudaErrorInvalidValue;
+    case 32: return launch<32>(dtype, q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, scale_log2e, st);
+    case 64: return launch<64>(dtype, q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, scale_log2e, st);
+    case 128: return launch<128>(dtype, q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, scale_log2e, st);
   }
-  return static_cast<int>(err);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,9 +14,11 @@ no layout split: one CUDA source per direction computes each for every shape
 
 At the DiT's (16, 1024, 6, 64) both do hundreds of flops per byte moved,
 above the H100's ~295 flop/byte bf16 ridge: they are compute-bound. bf16
-runs on the tensor cores (``mma.sync`` fed by ``ldmatrix`` and ``cp.async``,
-helpers in ``csrc/flash_mma.cuh``); fp32, which has no exact tensor-core
-product, runs on scalar-FMA kernels (the sources say more).
+runs on Hopper's tensor cores: warp-specialised blocks whose producer warp
+loads tiles by TMA into a ring of shared-memory stages and whose consumer
+warpgroups run ``wgmma`` (helpers and the host's tensor maps in
+``csrc/flash_sm90.cuh``); fp32, which has no exact tensor-core product, runs
+on scalar-FMA kernels (the sources say more).
 
 - :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
   — the plain PyTorch versions, op for op like ``_softmax_pv`` and
@@ -66,6 +68,9 @@ _NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# a C entry point's return at or above this is a tensor-map encode that
+# failed: this plus its CUresult (``kEncodeError`` in csrc/flash_sm90.cuh)
+_ENCODE_ERROR = 100000
 
 
 def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -82,18 +87,26 @@ def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 
 
 def _aligned16(x: torch.Tensor) -> bool:
-    """True if the bf16 kernels can read ``x`` with 16-byte ``cp.async`` copies.
+    """True if the bf16 kernels can read ``x`` through a TMA tensor map.
 
     The base address and every batch, sequence and head stride (in bytes)
-    must be multiples of 16; the stride of a dimension of size 1 is never
-    used. The q/k/v thirds of the DiT's fused qkv projection pass.
+    must be multiples of 16, and those strides nonzero (a broadcast view has
+    no tensor map); the stride of a dimension of size 1 is never used. The
+    q/k/v thirds of the DiT's fused qkv projection pass.
     """
     if x.data_ptr() % 16:
         return False
     return all(
-        size == 1 or (stride * x.element_size()) % 16 == 0
+        size == 1 or (stride != 0 and (stride * x.element_size()) % 16 == 0)
         for size, stride in zip(x.shape[:3], x.stride()[:3])
     )
+
+
+def _launch_error(name: str, code: int) -> str:
+    """The message for a C entry point's nonzero return: a launch's ``cudaError_t`` or an encode's ``CUresult``."""
+    if code >= _ENCODE_ERROR:
+        return f"{name}: cuTensorMapEncodeTiled failed with CUresult {code - _ENCODE_ERROR}"
+    return f"{name} launch failed: cudaError {code}"
 
 
 def flash_attention_reference(
@@ -248,7 +261,7 @@ class CudaKernel:
     def _launch(self, *args) -> None:
         err = getattr(self._lib, self.name)(*args)
         if err != 0:
-            raise RuntimeError(f"{self.name} launch failed: cudaError {err}")
+            raise RuntimeError(_launch_error(self.name, err))
         self.launches += 1
 
 

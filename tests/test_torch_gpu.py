@@ -27,9 +27,14 @@ BF16_RAGGED = [
     ((1, 65, 1, 128), torch.bfloat16),
     ((3, 77, 2, 32), torch.bfloat16),
 ]
+# the TMA tiles' ragged edges at every head dim (each D its own box width and
+# swizzle): one row, under one 64-row box, one row past a box, past two
+# boxes, and ragged after several rounds of the ring (chip_smoke.py's
+# TMA_RAGGED_CASES)
+TMA_RAGGED = [((2, s, 2, d), torch.bfloat16) for d in (32, 64, 128) for s in (1, 17, 65, 129, 1000)]
 # the UNet's training shapes (chip_smoke.py phase 13): 64 tokens x D=32 and
 # 16 tokens x D=64 at B=64; S=16 is shorter than one of the bf16 backward's
-# 32-row streamed tiles and than its two 16-row bands a warp
+# 32-row product steps and fills a quarter of its 64-row tiles
 UNET_BWD = [(64, 64, 8, 32), (64, 16, 8, 64)]
 # the backward's shapes: chip_smoke.py phases 6 and 13, and a ragged
 # sequence shorter than 16 rows on the tensor cores
@@ -42,6 +47,7 @@ BWD_CASES = [
     *((shape, dtype) for shape in UNET_BWD for dtype in (torch.bfloat16, torch.float32)),
     ((3, 9, 2, 64), torch.bfloat16),
     ((2, 256, 8, 64), torch.bfloat16),  # the IPMSA UNet's level 3: 16 x 16 tokens, 8 heads x 64
+    *TMA_RAGGED,
 ]
 
 
@@ -71,6 +77,7 @@ def _strided_qkv(shape, dtype, gen):
         ((64, 64, 6, 64), torch.bfloat16),  # the DiT's OOD classify at 64 px
         ((2, 256, 8, 64), torch.bfloat16),  # the IPMSA UNet's level 3
         *BF16_RAGGED,
+        *TMA_RAGGED,
     ],
 )
 def test_kernel_matches_plain_version(cuda, shape, dtype):
@@ -82,7 +89,7 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
 
 
 # the UNet's short sequences (16 tokens: shorter than one 64-row K/V tile,
-# and most q warps without a row; 64 tokens at D=32: one tile), with q, k, v
+# and three quarters of the 64 q rows padding; 64 tokens at D=32: one tile), with q, k, v
 # separate projections as the UNet's to_q/to_k/to_v give them
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(2, 16, 8, 64), (2, 64, 8, 32), (3, 16, 2, 32)])
@@ -168,7 +175,9 @@ def test_flagship_remat_launches_each_forward_twice_with_the_same_gradients(cuda
     assert ((grads[1] - grads[0]).norm() / grads[0].norm()).item() <= 1e-6
 
 
-@pytest.mark.parametrize("shape", [(2, 200, 2, 64), (16, 1024, 6, 64)])
+@pytest.mark.parametrize(
+    "shape", [(2, 200, 2, 64), (16, 1024, 6, 64), (2, 1000, 2, 32), (2, 1000, 2, 128), (64, 16, 8, 64)]
+)
 def test_backward_kernel_is_deterministic(cuda, shape):
     q, k, v = _strided_qkv(shape, torch.bfloat16, cuda)
     do = torch.randn(q.shape, generator=cuda, device="cuda").to(q.dtype)

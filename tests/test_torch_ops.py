@@ -233,14 +233,30 @@ def test_aligned16_passes_the_qkv_thirds_and_fails_an_offset_view():
     assert fa._aligned16(qkv[:1, :1, : h * d].reshape(1, 1, h, d))
 
 
+def test_aligned16_refuses_a_broadcast_view_which_has_no_tensor_map():
+    # a stride of 0 is a multiple of 16, but TMA maps need real strides
+    b, s, h, d = 2, 16, 2, 64
+    k = torch.zeros((b, 1, h, d), dtype=torch.bfloat16)
+    assert fa._aligned16(k) and not fa._aligned16(k.expand(b, s, h, d))
+    kernel = fa.CudaKernel("flash_attn_fwd", [])
+    (out,) = kernel._aligned(k.expand(b, s, h, d))
+    assert kernel.copies == 1 and fa._aligned16(out) and out.stride()[1] == h * d
+
+
+def test_launch_error_tells_an_encode_from_a_launch():
+    encode = fa._launch_error("flash_attn_fwd", fa._ENCODE_ERROR + 1)  # CUDA_ERROR_INVALID_VALUE
+    assert encode == "flash_attn_fwd: cuTensorMapEncodeTiled failed with CUresult 1"
+    assert fa._launch_error("flash_attn_bwd", 9) == "flash_attn_bwd launch failed: cudaError 9"
+
+
 def test_library_path_hashes_the_shared_header(tmp_path):
     kernel = fa.CudaKernel("flash_attn_fwd", [])
     kernel.source = str(tmp_path / "flash_attn_fwd.cu")
     (tmp_path / "flash_attn_fwd.cu").write_text("// kernel\n")
-    (tmp_path / "flash_mma.cuh").write_text("// helpers\n")
+    (tmp_path / "flash_sm90.cuh").write_text("// helpers\n")
     first = kernel.library_path()
     assert first == kernel.library_path() and first.endswith("libflash_attn_fwd.so")
-    (tmp_path / "flash_mma.cuh").write_text("// helpers, edited\n")
+    (tmp_path / "flash_sm90.cuh").write_text("// helpers, edited\n")
     assert kernel.library_path() != first  # an edited header rebuilds
 
 
