@@ -1,0 +1,12 @@
+"""The benchmark's own CPU tests: ``python -m pytest portbench/tests -q`` from the checkout's root."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA device; skips inside the test when none is found")
