@@ -36,6 +36,13 @@ provider — :class:`TorchDraws` over a ``torch.Generator`` on the device, or,
 in the tests, one that replays the JAX key tree — requested in the JAX
 order: the fast-mode selection first, then per stage and per evaluation
 group ``t [G, B]`` and ``ε [G, *x.shape]``.
+
+Spans (``utils/profiling.py``): ``tournament.stage`` around each stage,
+holding ``tournament.auto_group`` (the group size, with the card's free
+memory), one ``tournament.group`` a group of evaluations (draws, noising,
+the denoiser's forwards, the errors and the dense table) and
+``tournament.select`` (the means, the sort, the kept classes); counters
+``tournament.stages`` and ``tournament.groups``.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
+from ..utils import profiling
 from .process import bcast_right, pred_to_eps
 from .schedule import alpha_sigma
 
@@ -211,60 +219,62 @@ def make_classifier(
         b_idx = torch.arange(b, device=x.device)[None, :, None]
 
         for gi in range(n_groups):
-            t, eps = draws.noise(
-                stage, n_stages, gi, n_groups, (group, gb), (group, gb) + tuple(x.shape[1:])
-            )
-            if rows is not None:
-                t, eps = t[:, rows], eps[:, rows]
-            t = t.to(x.device, torch.float32)
-            eps = eps.to(x.device, x.dtype)
-            logsnr_t = schedule_fn(t)  # [G, B]
-            alpha_t, sigma_t = alpha_sigma(logsnr_t)
-            a = bcast_right(alpha_t, eps.ndim).to(x.dtype)
-            s = bcast_right(sigma_t, eps.ndim).to(x.dtype)
-            z = a * x[None] + s * eps  # [G, B, ...]
-            state = None
-            if prefix:  # the condition-free prefix, once per (eval, image)
-                z_flat = z.reshape((group * b,) + tuple(x.shape[1:]))
-                state = encode_fn(z_flat, logsnr_t.reshape(group * b))
+            profiling.count("tournament.groups")
+            with profiling.span("tournament.group"):
+                t, eps = draws.noise(
+                    stage, n_stages, gi, n_groups, (group, gb), (group, gb) + tuple(x.shape[1:])
+                )
+                if rows is not None:
+                    t, eps = t[:, rows], eps[:, rows]
+                t = t.to(x.device, torch.float32)
+                eps = eps.to(x.device, x.dtype)
+                logsnr_t = schedule_fn(t)  # [G, B]
+                alpha_t, sigma_t = alpha_sigma(logsnr_t)
+                a = bcast_right(alpha_t, eps.ndim).to(x.dtype)
+                s = bcast_right(sigma_t, eps.ndim).to(x.dtype)
+                z = a * x[None] + s * eps  # [G, B, ...]
+                state = None
+                if prefix:  # the condition-free prefix, once per (eval, image)
+                    z_flat = z.reshape((group * b,) + tuple(x.shape[1:]))
+                    state = encode_fn(z_flat, logsnr_t.reshape(group * b))
 
-            def score_classes(cand_c):
-                """Errors ``[G, B, cc]`` for candidates ``cand_c [B, cc]``."""
-                ncc = cand_c.shape[1]
-                rows = (group * b * ncc,) + tuple(x.shape[1:])
-                lg = logsnr_t[:, :, None].expand(group, b, ncc).reshape(-1)
-                lab = cand_c[None].expand(group, b, ncc).reshape(-1)
-                zz = z[:, :, None].expand((group, b, ncc) + x.shape[1:]).reshape(rows)
-                if state is None:
-                    pred = apply_fn(zz, lg, lab)
-                elif ncc == 1:  # one class a row: the state as it is, no copy
-                    pred = tail_fn(state, lab)
-                else:
-                    # row (g·B + b)·cc + c pairs image (g, b) with class c
-                    rep = tree_map(lambda t: t.repeat_interleave(ncc, dim=0), state)
-                    pred = tail_fn(rep, lab)
-                al, si = alpha_sigma(lg)
-                eps_pred = pred_to_eps(pred, zz, al, si, pred_param)
-                eps_rep = eps[:, :, None].expand((group, b, ncc) + x.shape[1:])
-                diff = (eps_pred - eps_rep.reshape(rows)).to(torch.float32)
-                return torch.sum(diff * diff, dim=img_dims).reshape(group, b, ncc)
+                def score_classes(cand_c):
+                    """Errors ``[G, B, cc]`` for candidates ``cand_c [B, cc]``."""
+                    ncc = cand_c.shape[1]
+                    rows = (group * b * ncc,) + tuple(x.shape[1:])
+                    lg = logsnr_t[:, :, None].expand(group, b, ncc).reshape(-1)
+                    lab = cand_c[None].expand(group, b, ncc).reshape(-1)
+                    zz = z[:, :, None].expand((group, b, ncc) + x.shape[1:]).reshape(rows)
+                    if state is None:
+                        pred = apply_fn(zz, lg, lab)
+                    elif ncc == 1:  # one class a row: the state as it is, no copy
+                        pred = tail_fn(state, lab)
+                    else:
+                        # row (g·B + b)·cc + c pairs image (g, b) with class c
+                        rep = tree_map(lambda t: t.repeat_interleave(ncc, dim=0), state)
+                        pred = tail_fn(rep, lab)
+                    al, si = alpha_sigma(lg)
+                    eps_pred = pred_to_eps(pred, zz, al, si, pred_param)
+                    eps_rep = eps[:, :, None].expand((group, b, ncc) + x.shape[1:])
+                    diff = (eps_pred - eps_rep.reshape(rows)).to(torch.float32)
+                    return torch.sum(diff * diff, dim=img_dims).reshape(group, b, ncc)
 
-            if identity and n_cc == 1:
-                # every row's candidates are arange(C): slots already aligned
-                err_sum = err_sum + score_classes(cand).sum(dim=0)
-                count = count + group
-                continue
+                if identity and n_cc == 1:
+                    # every row's candidates are arange(C): slots already aligned
+                    err_sum = err_sum + score_classes(cand).sum(dim=0)
+                    count = count + group
+                    continue
 
-            dense = torch.full(
-                (group, b, num_classes), math.inf, dtype=torch.float32, device=x.device
-            )
-            for j in range(n_cc):
-                cand_c = cand[:, j * cc : (j + 1) * cc]
-                # duplicates write the same value (shared (t, ε) ⇒ same error)
-                dense[g_idx, b_idx, cand_c[None]] = score_classes(cand_c)
-            scored = torch.isfinite(dense)
-            err_sum = err_sum + torch.where(scored, dense, 0.0).sum(dim=0)
-            count = count + scored.sum(dim=0, dtype=torch.int32)
+                dense = torch.full(
+                    (group, b, num_classes), math.inf, dtype=torch.float32, device=x.device
+                )
+                for j in range(n_cc):
+                    cand_c = cand[:, j * cc : (j + 1) * cc]
+                    # duplicates write the same value (shared (t, ε) ⇒ same error)
+                    dense[g_idx, b_idx, cand_c[None]] = score_classes(cand_c)
+                scored = torch.isfinite(dense)
+                err_sum = err_sum + torch.where(scored, dense, 0.0).sum(dim=0)
+                count = count + scored.sum(dim=0, dtype=torch.int32)
         return err_sum, count
 
     def _auto_group(n_evals, b, gb, k, x):
@@ -303,15 +313,21 @@ def make_classifier(
         count = torch.zeros((b, num_classes), dtype=torch.int32, device=dev)
         stages = []
         for i in range(n_stages):
-            n_evals = ev[i + 1] - ev[i]
-            group = eval_group or _auto_group(n_evals, b, gb, cand.shape[1], x)
-            identity = (not fast) and i == 0 and cand.shape[1] == num_classes
-            err_sum, count = _score_stage(
-                x, cand, err_sum, count, draws, i, n_evals, group, identity, rows
-            )
-            mean = torch.where(count == ev[i + 1], err_sum / ev[i + 1], math.inf)
-            # lax.top_k(-mean) order: lowest mean first, ties to the lower id
-            cand = torch.sort(mean, dim=1, stable=True).indices[:, : keep[i]]
+            profiling.count("tournament.stages")
+            with profiling.span("tournament.stage"):
+                n_evals = ev[i + 1] - ev[i]
+                group = eval_group
+                if not group:
+                    with profiling.span("tournament.auto_group"):
+                        group = _auto_group(n_evals, b, gb, cand.shape[1], x)
+                identity = (not fast) and i == 0 and cand.shape[1] == num_classes
+                err_sum, count = _score_stage(
+                    x, cand, err_sum, count, draws, i, n_evals, group, identity, rows
+                )
+                with profiling.span("tournament.select"):
+                    mean = torch.where(count == ev[i + 1], err_sum / ev[i + 1], math.inf)
+                    # lax.top_k(-mean) order: lowest mean first, ties to the lower id
+                    cand = torch.sort(mean, dim=1, stable=True).indices[:, : keep[i]]
             if trace:
                 stages.append({"mean": mean, "cand": cand})
         if trace:

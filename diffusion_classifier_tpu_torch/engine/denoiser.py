@@ -15,6 +15,10 @@ own label table).
 ``deterministic`` goes to the backbone in every mode (False turns the UNet's
 dropout on). It defaults to True, and the loss, the classifier and the
 sampler never pass it, as in the JAX engine.
+
+A forward is the span ``denoiser.<mode>`` and adds to the counters
+``denoiser.forwards.<mode>`` (1) and ``denoiser.rows.<mode>`` (its rows)
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,14 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils import profiling
+
 __all__ = ["Denoiser", "supports_prefix"]
+
+# mode -> (span, forwards counter, rows counter)
+_NAMES = {
+    m: (f"denoiser.{m}", f"denoiser.forwards.{m}", f"denoiser.rows.{m}") for m in ("full", "encode", "tail")
+}
 
 
 class Denoiser(nn.Module):
@@ -43,17 +54,22 @@ class Denoiser(nn.Module):
         mode: str = "full",
         prefix_state=None,
     ):
-        if mode == "encode":
-            return self.backbone(z_t, logsnr_t, None, deterministic=deterministic, mode="encode")
-        cond = self.encoder(labels) if self.encoder is not None else labels
-        if mode == "tail":
-            return self.backbone(
-                None, None, cond, deterministic=deterministic, mode="tail",
-                prefix_state=prefix_state,
-            )
-        if mode != "full":
+        names = _NAMES.get(mode)
+        if names is None:
             raise ValueError(f"unknown mode {mode!r}")
-        return self.backbone(z_t, logsnr_t, cond, deterministic=deterministic)
+        name, forwards, rows = names
+        profiling.count(forwards)
+        profiling.count(rows, (labels if z_t is None else z_t).shape[0])
+        with profiling.span(name):
+            if mode == "encode":
+                return self.backbone(z_t, logsnr_t, None, deterministic=deterministic, mode="encode")
+            cond = self.encoder(labels) if self.encoder is not None else labels
+            if mode == "tail":
+                return self.backbone(
+                    None, None, cond, deterministic=deterministic, mode="tail",
+                    prefix_state=prefix_state,
+                )
+            return self.backbone(z_t, logsnr_t, cond, deterministic=deterministic)
 
 
 def supports_prefix(backbone) -> bool:

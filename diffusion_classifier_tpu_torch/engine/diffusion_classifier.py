@@ -56,6 +56,12 @@ batch of labels.
 compile to cache, and the CUDA kernels are cached by the hash of their
 sources under ``build/`` (``ops/flash_attention.py``).
 
+Spans and counters (``utils/profiling.py``): a classify call is the span
+``classify`` (counters ``classify.calls``, ``classify.images``), a train
+step ``train_step`` (``train.steps``); both, and sample and loss, hand
+their host images to the device in ``upload`` (``upload.bytes``) and
+Haar-transform them in ``haar``.
+
 The device is explicit (``device=``, default ``"cuda"``): nothing moves to
 the CPU because no GPU was found. The classifier's, the sampler's and the
 train step's draws come from one ``torch.Generator`` on that device seeded
@@ -89,6 +95,7 @@ from ..models.layers import reset_parameters
 from ..ops.wavelet import haar_dwt2
 from ..parallel.mesh import PreemptionSync, is_main_process, make_mesh
 from ..parallel.sharding import shard_params
+from ..utils import profiling
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.tracking import make_tracker
 from .denoiser import Denoiser, supports_prefix
@@ -251,8 +258,14 @@ class DiffusionClassifier:
 
     def _images(self, x) -> torch.Tensor:
         """Host images → float32 device tensor, Haar-decomposed (÷2 into [-1, 1]) if configured."""
-        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-        return haar_dwt2(x) / 2.0 if self.config.wavelet_transform else x
+        with profiling.span("upload"):
+            x = np.asarray(x, np.float32)
+            profiling.count("upload.bytes", x.nbytes)
+            x = torch.as_tensor(x, device=self.device)
+        if not self.config.wavelet_transform:
+            return x
+        with profiling.span("haar"):
+            return haar_dwt2(x) / 2.0
 
     def _labels(self, labels) -> torch.Tensor:
         return torch.as_tensor(np.asarray(labels, np.int64), device=self.device)
@@ -304,24 +317,27 @@ class DiffusionClassifier:
         """One optimizer step on a host batch; returns the loss as a device scalar (no sync)."""
         if self._train_step is None:
             raise RuntimeError("build the train state first (train_loop does)")
-        x = self._images(batch["images"])
-        labels = batch.get("prompt")
-        labels = self._labels(
-            labels if labels is not None else np.zeros(x.shape[0], np.int64)
-        )
-        draws = draws if draws is not None else TorchTrainDraws(self.generator)
-        return self._train_step(self.state, x, labels, draws)
+        with profiling.span("train_step", profiling.count("train.steps")):
+            x = self._images(batch["images"])
+            labels = batch.get("prompt")
+            labels = self._labels(
+                labels if labels is not None else np.zeros(x.shape[0], np.int64)
+            )
+            draws = draws if draws is not None else TorchTrainDraws(self.generator)
+            return self._train_step(self.state, x, labels, draws)
 
     def classify(self, x, labels=None, *, draws=None):
         """Staged per-class ELBO tournament on the EMA parameters; ``draws`` overrides the generator."""
         self._require_state()
-        x = self._images(x)
-        if labels is None:
-            if self.config.fast_classification:
-                raise ValueError("fast_classification requires true labels in classify()")
-            labels = np.zeros((x.shape[0],), np.int64)
-        draws = draws if draws is not None else TorchDraws(self.generator)
-        return self._classify_impl(x, self._labels(labels), draws)
+        with profiling.span("classify", profiling.count("classify.calls")):
+            x = self._images(x)
+            profiling.count("classify.images", x.shape[0])
+            if labels is None:
+                if self.config.fast_classification:
+                    raise ValueError("fast_classification requires true labels in classify()")
+                labels = np.zeros((x.shape[0],), np.int64)
+            draws = draws if draws is not None else TorchDraws(self.generator)
+            return self._classify_impl(x, self._labels(labels), draws)
 
     def sample(self, x, labels=None, from_t: float = 1.0, *, draws=None) -> torch.Tensor:
         """CFG ancestral sampling on the EMA parameters; ``from_t < 1`` re-noises ``x`` first.

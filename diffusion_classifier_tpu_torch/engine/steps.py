@@ -15,6 +15,12 @@ key tree (``split(rng, 3)`` per microbatch, ``split(rng, k)`` over them).
 loss and every gradient are finite before it updates anything, and raises
 ``FloatingPointError`` if not. The check reads one flag from the device;
 without ``debug_nans`` the step makes no host synchronisation.
+
+Spans (``utils/profiling.py``): ``train.draws``, one
+``train.forward_backward`` a microbatch (counter ``train.microbatches``),
+``train.optimizer`` (Adam's update, the clip inside it) and ``train.ema``.
+The backward's kernels, launched from autograd's own thread, fall by time
+inside ``train.forward_backward``.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 
 from ..diffusion.process import diffuse, weighted_mse_loss
 from ..diffusion.schedule import alpha_sigma
+from ..utils import profiling
 from .state import EmaConfig, Optimizer, TrainState, ema_update
 
 __all__ = [
@@ -123,11 +130,12 @@ def make_train_step(
             raise ValueError(f"batch {b} not divisible by grad_accum_steps {k}")
         global_micro = b * pl.data_count // k
         shape = (global_micro,) + tuple(x.shape[1:])
-        parts = [draws.loss(i, k, global_micro, shape) for i in range(k)]
-        u, t, eps = parts[0] if k == 1 else (torch.cat(d) for d in zip(*parts))
-        if pl.data_count > 1:
-            rows = slice(pl.data_index * b, (pl.data_index + 1) * b)
-            u, t, eps = u[rows], t[rows], eps[rows]
+        with profiling.span("train.draws"):
+            parts = [draws.loss(i, k, global_micro, shape) for i in range(k)]
+            u, t, eps = parts[0] if k == 1 else (torch.cat(d) for d in zip(*parts))
+            if pl.data_count > 1:
+                rows = slice(pl.data_index * b, (pl.data_index + 1) * b)
+                u, t, eps = u[rows], t[rows], eps[rows]
         model_params = list(state.model.parameters())
         for p in model_params:
             p.grad = None
@@ -135,7 +143,8 @@ def make_train_step(
         mb = b // k
         for i in range(k):
             sl = slice(i * mb, (i + 1) * mb)
-            with pl.sync_context(last=i == k - 1):
+            profiling.count("train.microbatches")
+            with profiling.span("train.forward_backward"), pl.sync_context(last=i == k - 1):
                 loss_i = loss_fn(x[sl], labels[sl], u[sl], t[sl], eps[sl])
                 loss_i.backward()  # sums into .grad across microbatches
             total = loss_i.detach() if total is None else total + loss_i.detach()
@@ -150,8 +159,10 @@ def make_train_step(
         total = pl.mean_over_data(total)
         if debug_nans:
             check_finite("the loss and gradients", [total, *grads])
-        tx.update(grads, state.opt_state, params, global_norm=pl.grad_norm)
-        ema_update(state.ema_params(), params, state.ema_counter, ema_cfg)
+        with profiling.span("train.optimizer"):
+            tx.update(grads, state.opt_state, params, global_norm=pl.grad_norm)
+        with profiling.span("train.ema"):
+            ema_update(state.ema_params(), params, state.ema_counter, ema_cfg)
         for p in model_params:
             p.grad = None
         state.step += 1

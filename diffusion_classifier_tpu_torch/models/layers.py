@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import profiling
+
 from ..ops.attention import attention
 from ..parallel.collectives import copy_to_group, gather_from_group, reduce_from_group
 
@@ -166,25 +168,29 @@ class TimestepEmbedding(nn.Module):
 def group_norm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, num_groups: int, eps: float
 ) -> torch.Tensor:
-    """GroupNorm over the channels of a ``[N, ..., C]`` tensor, in ``group_norm_mxu``'s arithmetic."""
+    """GroupNorm over the channels of a ``[N, ..., C]`` tensor, in ``group_norm_mxu``'s arithmetic.
+
+    The span ``norm.group`` (``utils/profiling.py``).
+    """
     n, c = x.shape[0], x.shape[-1]
     if c % num_groups:
         raise ValueError(f"groups {num_groups} must divide channels {c}")
-    cg = c // num_groups
-    xg = x.reshape(n, -1, num_groups, cg)
-    count = xg.shape[1] * cg
-    # squares in x.dtype (bf16 rounds them), sums in float32
-    s_g = xg.sum(dim=(1, 3), dtype=torch.float32)
-    ss_g = (xg * xg).sum(dim=(1, 3), dtype=torch.float32)
-    mean = s_g / count
-    var = torch.clamp(ss_g / count - mean * mean, min=0.0)
-    inv = torch.rsqrt(var + eps)
-    mean_c = mean.repeat_interleave(cg, dim=1)  # [n, c]
-    inv_c = inv.repeat_interleave(cg, dim=1)
-    w = (inv_c * scale[None, :]).to(x.dtype)
-    b = (bias[None, :] - mean_c * inv_c * scale[None, :]).to(x.dtype)
-    y = x.reshape(n, -1, c) * w[:, None, :] + b[:, None, :]
-    return y.reshape(x.shape)
+    with profiling.span("norm.group"):
+        cg = c // num_groups
+        xg = x.reshape(n, -1, num_groups, cg)
+        count = xg.shape[1] * cg
+        # squares in x.dtype (bf16 rounds them), sums in float32
+        s_g = xg.sum(dim=(1, 3), dtype=torch.float32)
+        ss_g = (xg * xg).sum(dim=(1, 3), dtype=torch.float32)
+        mean = s_g / count
+        var = torch.clamp(ss_g / count - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + eps)
+        mean_c = mean.repeat_interleave(cg, dim=1)  # [n, c]
+        inv_c = inv.repeat_interleave(cg, dim=1)
+        w = (inv_c * scale[None, :]).to(x.dtype)
+        b = (bias[None, :] - mean_c * inv_c * scale[None, :]).to(x.dtype)
+        y = x.reshape(n, -1, c) * w[:, None, :] + b[:, None, :]
+        return y.reshape(x.shape)
 
 
 class GroupNorm(nn.Module):
@@ -201,11 +207,12 @@ class GroupNorm(nn.Module):
 
 
 def layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """flax ``LayerNorm(use_bias=False, use_scale=False, dtype=float32)``: float32 out."""
-    xf = x.to(torch.float32)
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-    return (xf - mean) * torch.rsqrt(var + eps)
+    """flax ``LayerNorm(use_bias=False, use_scale=False, dtype=float32)``: float32 out; the span ``norm.layer``."""
+    with profiling.span("norm.layer"):
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        return (xf - mean) * torch.rsqrt(var + eps)
 
 
 class LayerNorm(nn.Module):

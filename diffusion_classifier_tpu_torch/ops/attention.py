@@ -12,12 +12,16 @@ The backend names are the JAX config's:
 The TPU's ``auto`` routing (kernel only at ≥ 256 tokens) was measured on a
 TPU and is not carried over: ``auto`` takes the kernels until routing is
 measured on the H100 (ROADMAP A2).
+
+Each call is a span, ``attention.flash`` or ``attention.plain`` by the route
+taken, and adds 1 to the counter of the same name (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from .flash_attention import flash_attention, supports
 
 __all__ = ["attention", "dot_product_attention"]
@@ -55,5 +59,9 @@ def attention(
     if backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"Unknown attention backend {backend!r}")
     if backend != "xla" and supports(q, k, v):
-        return flash_attention(q, k, v)
-    return dot_product_attention(q, k, v)
+        profiling.count("attention.flash")
+        with profiling.span("attention.flash"):
+            return flash_attention(q, k, v)
+    profiling.count("attention.plain")
+    with profiling.span("attention.plain"):
+        return dot_product_attention(q, k, v)

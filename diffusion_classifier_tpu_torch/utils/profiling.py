@@ -11,6 +11,22 @@
   (the same keys as the JAX ``StepTimer``). Where CUDA is in use it waits
   for the card at the start and the end of a step, so a step's time holds
   its device work, not only its launches.
+- :func:`span` — a named range at a layer boundary of the program
+  (``classify``, ``tournament.group``, ``denoiser.tail``, ``norm.group``,
+  ``attention.flash``, ``train.optimizer``, ...). Off by default: it then
+  returns one shared no-op context, after one test of a module flag. On,
+  inside :func:`trace` or :func:`spans`, it enters
+  ``torch.profiler.record_function("dc." + name)``: a ``user_annotation``
+  in the Chrome trace, on the profiler's clock, the clock of the device's
+  kernels. A call's top span (``classify``, ``train_step``) is named
+  ``dc.<name>#<n>``, ``n`` being the call's number in its counter
+  (``classify.calls``, ``train.steps``); every span inside its interval
+  belongs to that call. Spans are opened on the calling thread only: work
+  that autograd launches from its own thread falls, by time, inside the
+  span open on the calling thread.
+- :func:`count` — always on: adds to a process-wide dict of counters
+  (``classify.calls``, ``denoiser.rows.tail``, ``attention.flash``, ...);
+  :func:`counters` copies it, :func:`reset_counters` clears it.
 
 The JAX module's ``enable_compilation_cache`` has no counterpart: there is
 no XLA program to compile, and the CUDA kernels are built once and cached by
@@ -26,18 +42,61 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.autograd.profiler import record_function
 from torch.utils._pytree import tree_leaves
 
-__all__ = ["StepTimer", "timed", "trace"]
+__all__ = ["StepTimer", "count", "counters", "reset_counters", "span", "spans", "timed", "trace"]
+
+SPAN_PREFIX = "dc."
+
+_spans_on = False
+_OFF = contextlib.nullcontext()
+_counters: dict = {}
+
+
+def span(name: str, call: int | None = None):
+    """``with span("tournament.group"): ...``; ``call`` numbers a call's top span."""
+    if not _spans_on:
+        return _OFF
+    label = SPAN_PREFIX + name if call is None else f"{SPAN_PREFIX}{name}#{call}"
+    return record_function(label)
+
+
+@contextlib.contextmanager
+def spans():
+    """Spans on for the block (they are off outside it, unless an outer block has them on)."""
+    global _spans_on
+    before, _spans_on = _spans_on, True
+    try:
+        yield
+    finally:
+        _spans_on = before
+
+
+def count(name: str, n: int = 1) -> int:
+    """Add ``n`` to counter ``name``; returns its new value."""
+    value = _counters.get(name, 0) + n
+    _counters[name] = value
+    return value
+
+
+def counters() -> dict:
+    """A copy of every counter."""
+    return dict(_counters)
+
+
+def reset_counters() -> None:
+    _counters.clear()
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """``with trace(log_dir) as prof: step(...)``: a Chrome trace of the block in ``log_dir``.
 
-    Yields the ``torch.profiler.profile`` object (``prof.key_averages()``
-    for a table). The trace's path is ``prof.trace_path`` once the block
-    has ended.
+    The program's spans (:func:`span`) are on inside the block. Yields the
+    ``torch.profiler.profile`` object (``prof.key_averages()`` for a
+    table). The trace's path is ``prof.trace_path`` once the block has
+    ended.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -47,7 +106,7 @@ def trace(log_dir: str):
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=activities)
     prof.trace_path = None
-    with prof:
+    with prof, spans():
         try:
             yield prof
         finally:
