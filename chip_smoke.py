@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA flash-attention forward and backward from
-``diffusion_classifier_tpu_torch/csrc/`` (one ``nvcc`` each, started
-together) and drives the port's main paths at full width with seeded random
+Builds the CUDA flash-attention forward and backward and the fused
+LayerNorm from ``diffusion_classifier_tpu_torch/csrc/`` (one ``nvcc`` each,
+started together) and drives the port's main paths at full width with seeded random
 weights, on synthetic data and on data-format trees written from a seed:
 CheXpert DiT-b4 (384 = 6 × 64, 12 layers, 256 px → Haar DWT 128 × 128 × 12
 → 1024 tokens) ELBO classification and CFG sampling through
@@ -23,7 +23,7 @@ and evaluation; and the flagship UNet conditioned on a T5 class table
 (``encoder_type 't5'``) through the CIFAR-10 entry points. Phases:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: compiles both kernels, prints the seconds, ptxas' register use and
+2. build: compiles both kernels and the fused LayerNorm, prints the seconds, ptxas' register use and
    spills, and the ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA load)
    instructions of every kernel entry from ``cuobjdump -sass`` (found beside
    ``nvcc``); fails, naming the entry, if a bf16 entry of the forward, dk/dv
@@ -40,6 +40,13 @@ and evaluation; and the flagship UNet conditioned on a T5 class table
    turns: kernel, SDPA, SDPA, kernel, each run 10 calls back to back, and
    again of single calls, which also count the wrapper's host time; the
    host microseconds of one wrapper call) and the bound;
+3b. the fused LayerNorm (``csrc/layer_norm.cu``, AdaLN and affine
+   epilogues) vs its plain version at ``LN_CASES``: at least 99.9% of the
+   bf16 outputs identical, the AdaLN epilogue's roundings exact from the
+   kernel's own normalised rows, 21 runs at the DiT's shape bit-identical;
+   kernel, plain and ``F.layer_norm`` (a yardstick) ms at the DiT's
+   ``[128, 1024, 384]``, TB/s and the bytes' bound; each later path's
+   launches by phase, and no input copied on any of them;
 4. the full-width DiT-b4 forward with the kernel vs with the plain
    attention on the same weights: relative L2 ≤ 1e-2, 12 launches;
 5. the classify entry point: a seeded checkpoint, ``inference_torch.main()``
@@ -318,6 +325,20 @@ BWD_CASES = [
     *TMA_RAGGED_CASES,
 ]
 # runs of the DiT's shape whose outputs must be the same bits (phases 3, 6)
+# the fused LayerNorm (csrc/layer_norm.cu) against its plain version: the
+# DiT's classify forward [B·K·G = 128, 1024, 384] and its 32-row forward, the
+# CIFAR UNet's transformer blocks at a classify tail (1,024 rows at 8 × 8
+# tokens × 256 and 4 × 4 × 512), an odd row count, DiT-B's and the UNets'
+# widest rows, a width no multiple of 8 and rows past 256 chunks (the
+# two-pass kernel), and fp32
+LN_SHAPE = (128, 1024, 384)
+LN_CASES = [
+    (LN_SHAPE, torch.bfloat16), ((32, 1024, 384), torch.bfloat16),
+    ((1024, 64, 256), torch.bfloat16), ((1024, 16, 512), torch.bfloat16),
+    ((3, 37, 384), torch.bfloat16), ((4, 256, 768), torch.bfloat16), ((2, 64, 1152), torch.bfloat16),
+    ((4, 10, 100), torch.bfloat16), ((2, 8, 4096), torch.bfloat16), ((2, 64, 384), torch.float32),
+]
+LN_EPS = 1e-5
 REPEATS = 20
 # repetitions of each turn when a kernel is timed against its library call,
 # and the back-to-back calls in each repetition: with one call, the event
@@ -517,7 +538,7 @@ def entry_name(text):
     """
     match = re.search(r"(flash_fwd|delta|dkdv|dq)(_wgmma)?_kernelI(13__nv_bfloat16|f)?Li(\d+)E((?:Li\d+E)*)", text)
     if not match:
-        return text.strip()
+        return ln_entry_name(text) or text.strip()
     name, wgmma, dtype, dim, rest = match.groups()
     label = f"{name} {'f32' if dtype == 'f' else 'bf16'} D={dim}"
     if wgmma:
@@ -526,7 +547,22 @@ def entry_name(text):
     return label
 
 
-SASS_OPS = {"hgmma": r"\bHGMMA\.", "utmaldg": r"\bUTMALDG\b"}
+SASS_OPS = {"hgmma": r"\bHGMMA\.", "utmaldg": r"\bUTMALDG\b", "ldg128": r"\bLDG\.E\.128\b",
+            "stg128": r"\bSTG\.E\.128\b"}
+_LN_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32"}
+
+
+def ln_entry_name(text):
+    """``"layer_norm_rows bf16>bf16 vec=8 lanes=16 chunks=3"`` for a mangled LayerNorm entry in ``text``; None if none."""
+    match = re.search(r"(layer_norm_(?:long_)?rows)I(13__nv_bfloat16|f)(S\d*_|13__nv_bfloat16|f)((?:Li\d+E)+)", text)
+    if not match:
+        return None
+    name, tin, tout, ints = match.groups()
+    tin = _LN_TYPES[tin]
+    tout = tin if tout.startswith("S") else _LN_TYPES[tout]
+    values = re.findall(r"Li(\d+)E", ints)
+    label = f"{name} {tin}>{tout} vec={values[0]}"
+    return label + (f" lanes={values[1]} chunks={values[2]}" if len(values) == 3 else "")
 
 
 def sass_counts(fa, kernel):
@@ -552,10 +588,12 @@ def sass_counts(fa, kernel):
 
 
 def phase_build(fa):
-    seconds = fa.build_all(fa.FLASH_FWD, fa.FLASH_BWD)
-    print(f"[2 build] flash_attn_fwd and flash_attn_bwd built and loaded in {seconds:.2f} s")
+    from diffusion_classifier_tpu_torch.ops import layer_norm as ln
+
+    seconds = fa.build_all(fa.FLASH_FWD, fa.FLASH_BWD, ln.LAYER_NORM)
+    print(f"[2 build] flash_attn_fwd, flash_attn_bwd and layer_norm built and loaded in {seconds:.2f} s")
     sass = {}
-    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD):
+    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD, ln.LAYER_NORM):
         # ptxas -v: one "Compiling entry function '<mangled name>'" line, then
         # its spills, then its registers (none when the library was built
         # before this process)
@@ -574,6 +612,14 @@ def phase_build(fa):
         for entry, ops in counts.items():
             print(f"[2 build]   {entry}: {ptxas.get(entry, 'built earlier')}, "
                   + ", ".join(f"{n} {op.upper()}" for op, n in ops.items()))
+        if kernel is ln.LAYER_NORM:
+            # every one-pass entry loads its row 16 bytes a lane
+            rows = {e: n for e, n in counts.items() if e.startswith("layer_norm_rows")}
+            check(len(rows) == 4 * 14, f"one-pass entries of layer_norm in the SASS: {sorted(rows)}")
+            lacking = sorted(e for e, n in rows.items() if not n["ldg128"])
+            check(not lacking, f"layer_norm entries without 16-byte loads: {lacking}")
+            sass[kernel.name] = rows
+            continue
         # every bf16 entry of the attention passes runs wgmma fed by TMA: the
         # forward's 64- and 128-row K/V tilings (64 only at D=128), the dk/dv
         # and dq passes at 1 and 2 consumer warpgroups, per D
@@ -661,6 +707,71 @@ def phase_backward(fa):
             nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
             record["bound_ms"], record["bound_by"] = bound(10 * b * h * s * s * d, nbytes, dtype)
             print(f"[6 backward] {shape} bf16 median: plain {record['plain_ms']:.4f} ms; in turns of {TURN_REPS} (kernel, SDPA, SDPA, kernel): kernel {record['ms']:.4f} ms, SDPA backward {record['library_ms']:.4f} ms, kernel/SDPA {record['library_ratio']:.3f}; single calls: kernel {record['call_ms']:.4f} ms, SDPA backward {record['library_call_ms']:.4f} ms; host {record['host_us']:.1f} us per wrapper call; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
+    return record
+
+
+def phase_layer_norm():
+    """The fused LayerNorm's AdaLN epilogue against its plain version at ``LN_CASES``; times at the DiT's shape."""
+    from diffusion_classifier_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    record = {"shapes": []}
+    for shape, dtype in LN_CASES:
+        d = shape[-1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+        mods = (torch.randn((shape[0], 6 * d), generator=gen, device="cuda") * 0.5).to(dtype)
+        shift, scale = mods[:, :d], mods[:, d:2 * d]  # views of one row, as the DiT's chunks
+        w, b = torch.randn(d, generator=gen, device="cuda"), torch.randn(d, generator=gen, device="cuda")
+        args = dict(shift=shift, scale=scale, dtype=dtype)
+        got = ln.LAYER_NORM(x, LN_EPS, **args)
+        torch.cuda.synchronize()
+        want = ln.layer_norm_reference(x, LN_EPS, **args)
+        check(bool(torch.isfinite(got).all()), f"non-finite layer_norm output at {shape}")
+        err = (got.float() - want.float()).abs().max().item()
+        same = (got == want).float().mean().item()
+        print(f"[3b layer_norm] {shape} {str(dtype)[6:]} AdaLN: identical {100 * same:.4f}%, max |kernel - plain| = {err:.3e}")
+        if dtype == torch.bfloat16:
+            check(same >= 0.999, f"layer_norm: {same} of the outputs identical at {shape}")
+            r = ln.LAYER_NORM(x, LN_EPS, dtype=dtype)
+            check(torch.equal(got, r * (1.0 + scale[:, None, :]) + shift[:, None, :]),
+                  f"the AdaLN epilogue's roundings differ from the plain chain's at {shape}")
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        affine = ln.LAYER_NORM(x, LN_EPS, weight=w, bias=b, dtype=dtype)
+        affine_want = ln.layer_norm_reference(x, LN_EPS, weight=w, bias=b, dtype=dtype)
+        affine_same = (affine == affine_want).float().mean().item()
+        check(affine_same >= 0.999 or dtype == torch.float32, f"affine: {affine_same} identical at {shape}")
+        if dtype == torch.float32:
+            torch.testing.assert_close(affine, affine_want, rtol=1e-5, atol=1e-5)
+        entry = {"shape": list(shape), "dtype": str(dtype)[6:], "identical": same, "max_abs_err": err,
+                 "affine_identical": affine_same}
+        if shape in ((1024, 64, 256), (1024, 16, 512)):  # the UNet's affine norms
+            entry["affine_ms"] = cuda_ms(lambda: ln.LAYER_NORM(x, LN_EPS, weight=w, bias=b, dtype=dtype))
+            entry["affine_plain_ms"] = cuda_ms(
+                lambda: ln.layer_norm_reference(x, LN_EPS, weight=w, bias=b, dtype=dtype))
+            print(f"[3b layer_norm] {shape} affine: kernel {entry['affine_ms']:.4f} ms, plain {entry['affine_plain_ms']:.4f} ms")
+        record["shapes"].append(entry)
+        if shape == LN_SHAPE:
+            again = all(torch.equal(got, ln.LAYER_NORM(x, LN_EPS, **args)) for _ in range(REPEATS))
+            check(again, f"layer_norm's output differs between runs at {shape}")
+            record["max_abs_err"] = err
+            record["plain_ms"] = cuda_ms(lambda: ln.layer_norm_reference(x, LN_EPS, **args))
+            # the yardstick: ATen's own LayerNorm, bf16 in and out, without the modulation
+            timed_in_turns(record, lambda: ln.LAYER_NORM(x, LN_EPS, **args),
+                           lambda: F.layer_norm(x, (d,), eps=LN_EPS))
+            record["none_ms"] = cuda_ms(lambda: ln.LAYER_NORM(x, LN_EPS, dtype=dtype), reps=TURN_REPS,
+                                        inner=BACK_TO_BACK)
+            # x in, the output out, the scale and shift rows: each byte once
+            nbytes = 2 * x.numel() * x.element_size() + 2 * shift.numel() * shift.element_size()
+            record["bound_ms"], record["bound_by"] = bound(0, nbytes, dtype)
+            record["tb_per_s"] = nbytes / (record["ms"] * 1e-3) / 1e12
+            print(f"[3b layer_norm] {shape} bf16 AdaLN run {REPEATS + 1} times: bit-identical {again}; "
+                  f"kernel {record['ms']:.4f} ms ({record['tb_per_s']:.3f} TB/s, {100 * record['bound_ms'] / record['ms']:.1f}% of the bound), "
+                  f"no epilogue {record['none_ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, "
+                  f"F.layer_norm {record['library_ms']:.4f} ms (kernel/F.layer_norm {record['library_ratio']:.3f}); "
+                  f"single calls: kernel {record['call_ms']:.4f} ms; host {record['host_us']:.1f} us per wrapper call; "
+                  f"bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
+    ln.LAYER_NORM.copies = 0  # the paths below must copy nothing
     return record
 
 
@@ -3205,28 +3316,46 @@ def main() -> int:
     from diffusion_classifier_tpu_torch.experiments import cifar10 as cifar
     from diffusion_classifier_tpu_torch.experiments import ipmsa as ip
     from diffusion_classifier_tpu_torch.ops import flash_attention as fa
+    from diffusion_classifier_tpu_torch.ops import layer_norm as ln
     from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
 
     phase_device()
     sass = phase_build(fa)
     records = {"flash_attn_fwd": phase_kernel(fa), "flash_attn_bwd": phase_backward(fa)}
+    ln_record = phase_layer_norm()
+    # the fused LayerNorm's launches on each path of this process, by phase
+    ln_launches, ln_seen = {}, [ln.LAYER_NORM.launches]
+
+    def ln_mark(path):
+        ln_launches[path] = ln.LAYER_NORM.launches - ln_seen[-1]
+        ln_seen.append(ln.LAYER_NORM.launches)
+
     config = ExperimentConfig.from_dict(dict(INFERENCE_CONFIG))
     phase_dit(fa, chexpert, config)
+    ln_mark("dit_forward")
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
     try:
         classify_fwd = phase_entry_point(fa, chexpert, ExperimentConfig, workdir)
+        ln_mark("dit_classify")
         phase_dit_grads(fa, chexpert, config)
+        ln_mark("dit_grads")
         train_fwd, train_bwd = phase_train(fa, ExperimentConfig, workdir)
+        ln_mark("dit_train")
         records["flash_attn_fwd"]["shapes"] += phase_unet_kernel(fa)
         phase_unet_forward(fa, cifar, ExperimentConfig)
+        ln_mark("unet_forward")
         unet_classify_fwd, unet_rates = phase_unet_classify(fa, cifar, ExperimentConfig, workdir)
+        ln_mark("unet_classify")
         sample_fwd, sample_rates = phase_sampling(fa, cifar, chexpert, ExperimentConfig, workdir)
+        ln_mark("sampling")
         records["flash_attn_bwd"]["shapes"] += phase_unet_backward(fa)
         phase_unet_grads(fa, cifar, ExperimentConfig)
+        ln_mark("unet_grads")
         unet_train_fwd, unet_train_bwd, unet_train_rates = phase_unet_train(
             fa, cifar, ExperimentConfig, workdir
         )
+        ln_mark("unet_train")
         trees = phase_trees(workdir)
         loader_rates = phase_loader(trees, workdir)
         held = {"18 cx-unet": released("[18 cx-unet]")}
@@ -3235,8 +3364,10 @@ def main() -> int:
         cx_train_rates, cx_train_launches = phase_cx_unet_train(fa, cx_unet, ExperimentConfig, trees, workdir)
         held["18 cx-unet classify"] = released("[18 cx-unet classify]")
         cx_classify_rates, cx_ood = phase_cx_unet_classify(fa, cx_unet, ExperimentConfig, trees, workdir)
+        ln_mark("chexpert_unet")
         held["19 dit tree"] = released("[19 dit tree]")
         dit_tree = phase_cx_dit_tree(fa, ExperimentConfig, trees, workdir)
+        ln_mark("dit_tree")
         ip_tree = phase_ipmsa_trees(workdir)
         ip_loader = phase_ipmsa_loader(ip_tree, workdir)
         held["22 ipmsa"] = released("[22 ipmsa]")
@@ -3250,10 +3381,12 @@ def main() -> int:
             held["22 ipmsa unet classify"] = released("[22 ipmsa unet classify]")
             ip_classify_rates, ip_explain, ip_classify = phase_ipmsa_unet_classify(
                 fa, ip, ExperimentConfig, ip_tree, workdir)
+            ln_mark("ipmsa_unet")
         check_covered(fa, seen, "[22 ipmsa]")
         held["23 ipmsa dit"] = released("[23 ipmsa dit]")
         with kernel_shapes(fa) as seen:
             ip_dit = phase_ipmsa_dit(fa, ExperimentConfig, ip_tree, workdir)
+            ln_mark("ipmsa_dit")
         check_covered(fa, seen, "[23 ipmsa dit]")
         held["24 resnet"] = released("[24 resnet]")
         ip_resnet = phase_ipmsa_resnet(fa, ExperimentConfig, ip_tree, workdir)
@@ -3265,12 +3398,19 @@ def main() -> int:
         mp_entry = phase_mp_entry(fa, ExperimentConfig, trees, ip_tree, workdir)
         held["29 preempt"] = released("[29 preempt]")
         mp_preempt = phase_mp_preempt(fa, workdir)
+        ln_mark("multi_process_parent")
         held["30 t5"] = released("[30 t5]")
         t5 = phase_t5(fa, cifar, ExperimentConfig, workdir)
+        ln_mark("t5")
         held["31 orbax"] = released("[31 orbax]")
         orbax = phase_orbax(fa, ExperimentConfig)
+        ln_mark("orbax")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    print(f"[layer_norm] launches by path: {ln_launches}; copies {ln.LAYER_NORM.copies}")
+    check(ln.LAYER_NORM.copies == 0, f"the paths copied {ln.LAYER_NORM.copies} inputs of layer_norm")
+    check(ln_launches["dit_classify"] > 0 and ln_launches["unet_classify"] > 0,
+          f"a classify path never launched layer_norm: {ln_launches}")
     check("jax" not in sys.modules, "jax was imported")
     stray = loaded_from_jax_package()
     check(not stray, f"modules loaded from the JAX package: {stray}")
@@ -3338,7 +3478,18 @@ def main() -> int:
             **{op: {entry: n[op] for entry, n in sass[name].items()} for op in ("hgmma", "utmaldg")},
         }
         for name, (source, replaces) in KERNELS.items()
-    ]}))
+    ] + [{
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "diffusion_classifier_tpu_torch/csrc/layer_norm.cu",
+        "replaces": None,
+        "launches": sum(ln_launches.values()),
+        "launches_by_path": ln_launches,
+        **{key: ln_record[key] for key in (
+            "max_abs_err", "ms", "none_ms", "tb_per_s", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_ratio", "call_ms", "library_call_ms", "host_us", "shapes")},
+        **{op: {entry: n[op] for entry, n in sass["layer_norm"].items()} for op in ("ldg128", "stg128")},
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ Same structure and the same numerics conventions as the flax module:
   ``adaLN_modulation`` projection, split in the order shift/scale/gate for
   attention, then for the MLP.
 - LayerNorm has no affine, eps 1e-5, and computes in float32 with flax's
-  variance ``E[x²] − E[x]²`` (clipped at 0), then casts to the compute dtype.
+  variance ``E[x²] − E[x]²`` (clipped at 0), then casts to the compute dtype;
+  the AdaLN modulation ``h·(1 + scale) + shift`` follows in that dtype, in
+  the same call (``layers.layer_norm``).
 - In bf16 the residual stream and the position table stay bf16; the output
   is cast to float32.
 - ``qkv`` is split into three contiguous thirds, each viewed as
@@ -84,10 +86,6 @@ class DiTConfig:
         return self.out_channels if self.out_channels is not None else self.in_channels
 
 
-def _modulate(x, shift, scale):
-    return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
-
-
 class DiTBlock(nn.Module):
     """AdaLN transformer block: gated self-attention + gated tanh-GELU MLP."""
 
@@ -117,8 +115,7 @@ class DiTBlock(nn.Module):
             6, dim=-1
         )
 
-        h = layer_norm(x, self.norm_eps).to(self.dtype)
-        h = _modulate(h, shift_msa, scale_msa)
+        h = layer_norm(x, self.norm_eps, shift=shift_msa, scale=scale_msa, dtype=self.dtype)
         q, k, v = (
             t.view(b, s, self.num_heads, self.head_dim)
             for t in self.qkv(h).split(dim, dim=-1)
@@ -126,8 +123,7 @@ class DiTBlock(nn.Module):
         o = attention(q, k, v, backend=self.attn_backend).reshape(b, s, dim)
         x = x + gate_msa[:, None, :] * self.proj(o)
 
-        h = layer_norm(x, self.norm_eps).to(self.dtype)
-        h = _modulate(h, shift_mlp, scale_mlp)
+        h = layer_norm(x, self.norm_eps, shift=shift_mlp, scale=scale_mlp, dtype=self.dtype)
         h = F.gelu(self.mlp_fc1(h), approximate="tanh")
         return x + gate_mlp[:, None, :] * self.mlp_fc2(h)
 
@@ -216,8 +212,7 @@ class DiT(nn.Module):
 
         # --- AdaLN final layer + unpatchify ---
         shift, scale = self.final_modulation(F.silu(cond)).chunk(2, dim=-1)
-        tokens = layer_norm(tokens, cfg.norm_eps).to(self.dtype)
-        tokens = self.final_proj(_modulate(tokens, shift, scale))
+        tokens = self.final_proj(layer_norm(tokens, cfg.norm_eps, shift=shift, scale=scale, dtype=self.dtype))
         out = tokens.reshape(b, gh, gw, p, p, cfg.out_ch)
         out = out.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, cfg.out_ch)
         return out.to(torch.float32)

@@ -14,9 +14,12 @@ Normalisation keeps the JAX module's arithmetic:
   per-channel ``w``/``b`` are folded in float32 and cast to the input dtype,
   so ``y = x·w + b`` rounds in that dtype. GroupNorm eps is 1e-5, 1e-6 in
   front of a :class:`SpatialTransformer`.
-- :class:`LayerNorm` computes in float32 (flax ``LayerNorm(dtype=float32)``,
-  variance ``E[x²] − E[x]²`` clipped at 0) and returns float32; the blocks
-  cast back to the compute dtype.
+- :func:`layer_norm` computes in float32 (flax ``LayerNorm(dtype=float32)``,
+  variance ``E[x²] − E[x]²`` clipped at 0), then applies the :class:`LayerNorm`
+  module's fp32 affine or the DiT's AdaLN modulation, and returns the
+  caller's compute dtype, so no fp32 intermediate leaves the call
+  (``ops/layer_norm.py``: one kernel on the card in a forward that records
+  no graph).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from torch import nn
 from ..utils import profiling
 
 from ..ops.attention import attention
+from ..ops.layer_norm import LAYER_NORM, check_epilogue, layer_norm_reference
 from ..parallel.collectives import copy_to_group, gather_from_group, reduce_from_group
 
 __all__ = [
@@ -206,17 +210,38 @@ class GroupNorm(nn.Module):
         return group_norm(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps)
 
 
-def layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
-    """flax ``LayerNorm(use_bias=False, use_scale=False, dtype=float32)``: float32 out; the span ``norm.layer``."""
+def layer_norm(
+    x: torch.Tensor, eps: float, *, weight=None, bias=None, shift=None, scale=None,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=float32)`` over the last dim, then an epilogue; ``dtype`` out; the span ``norm.layer``.
+
+    ``weight``/``bias`` (fp32 ``[D]``): ``y·w + b`` in float32, then cast.
+    ``shift``/``scale`` (``[B, D]`` in ``dtype``, for ``x [B, S, D]``): the
+    DiT's AdaLN modulation ``y·(1 + scale) + shift`` after the cast, in
+    ``dtype``. Neither: ``y`` cast.
+
+    A CUDA tensor in a forward that records no autograd graph
+    (``torch.is_grad_enabled()`` false, or no input requires grad) takes the
+    kernel of ``ops/layer_norm.py``, which has no backward; every other call
+    the plain chain. Each call adds 1 to the counter ``norm.layer.kernel``
+    or ``norm.layer.plain``.
+    """
+    check_epilogue(weight, bias, shift, scale)
+    kw = dict(weight=weight, bias=bias, shift=shift, scale=scale, dtype=dtype)
     with profiling.span("norm.layer"):
-        xf = x.to(torch.float32)
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-        return (xf - mean) * torch.rsqrt(var + eps)
+        tensors = (x, weight, bias, shift, scale)
+        if x.is_cuda and not (
+            torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+        ):
+            profiling.count("norm.layer.kernel")
+            return LAYER_NORM(x, eps, **kw)
+        profiling.count("norm.layer.plain")
+        return layer_norm_reference(x, eps, **kw)
 
 
 class LayerNorm(nn.Module):
-    """flax ``LayerNorm(epsilon, dtype=float32)`` with scale and bias: float32 out."""
+    """flax ``LayerNorm(epsilon, dtype=float32)`` with scale and bias; the float32 result cast to ``dtype``."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -224,8 +249,8 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.eps) * self.weight + self.bias
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return layer_norm(x, self.eps, weight=self.weight, bias=self.bias, dtype=dtype)
 
 
 class ResnetBlock2D(nn.Module):
@@ -399,13 +424,13 @@ class BasicTransformerBlock(nn.Module):
         self.ff = GEGLUFeedForward(dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
-        x = x + self.attn1(self.norm1(x).to(self.dtype))
+        x = x + self.attn1(self.norm1(x, self.dtype))
         if (context is None) != (self.attn2 is None):
             raise ValueError("the context must be given exactly when the block has cross-attention")
         if self.attn2 is not None:
-            h = x if self.norm2 is None else self.norm2(x).to(self.dtype)
+            h = x if self.norm2 is None else self.norm2(x, self.dtype)
             x = x + self.attn2(h, context)
-        return x + self.ff(self.norm3(x).to(self.dtype))
+        return x + self.ff(self.norm3(x, self.dtype))
 
 
 class AttentionBlock2D(nn.Module):

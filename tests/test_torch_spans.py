@@ -228,7 +228,8 @@ def test_denoiser_counters_equal_a_forward_hook(build):
         (_dit_classify, {"classify.calls": 1, "classify.images": 2, "upload.bytes": 2 * 16 * 16 * 4,
                          "tournament.stages": 2}),
         (_dit_train_step, {"train.steps": 1, "train.microbatches": 2, "upload.bytes": 4 * 16 * 16 * 4,
-                           "denoiser.forwards.full": 2, "denoiser.rows.full": 4}),
+                           "denoiser.forwards.full": 2, "denoiser.rows.full": 4,
+                           "norm.layer.plain": 2 * (2 * DIT["num_layers"] + 1), "norm.layer.kernel": None}),
     ],
     ids=["classify", "train_step"],
 )
@@ -240,6 +241,10 @@ def test_call_counters(build, expected):
     if "tournament.stages" in expected:
         assert got["tournament.groups"] >= 2  # at least one group a stage
         assert got["attention.flash"] == DIT["num_layers"] * got["denoiser.forwards.full"]
+        # a norm before each block's attention and MLP, and the final layer's: the plain
+        # version on the CPU
+        assert got["norm.layer.plain"] == (2 * DIT["num_layers"] + 1) * got["denoiser.forwards.full"]
+        assert "norm.layer.kernel" not in got
 
 
 @pytest.mark.parametrize("backend, route", [("auto", "flash"), ("pallas", "flash"), ("xla", "plain")])
