@@ -298,6 +298,15 @@ TP_CASES = [(shape, dtype) for shape in ((64, 64, 4, 32), (64, 16, 4, 64))
             for dtype in (torch.float32, torch.bfloat16)]
 # its classify tails (fp32) at the group sizes G = 2 and 4: G x 64 images
 TP_CLASSIFY_CASES = [((64 * g, s, 4, d), torch.float32) for g in (2, 4) for s, d in ((64, 32), (16, 64))]
+# DiT-XL/2 at 512 px (the dit_xl2_512 benchmark cell): 1,024 tokens of 16
+# heads x 72, forward only, in the tournament's megabatches of 1,000 rows
+# (stage 1), 350 (stage 2, 7 evaluations x 50 classes) and 240 (stage 3);
+# XL_SHAPE is timed. D = 72 pads to 80 inside the kernel, so ragged
+# sequences and a single token are held too
+XL_SHAPE = (240, 1024, 16, 72)
+XL_CASES = [(shape, torch.bfloat16) for shape in (
+    (1000, 1024, 16, 72), (350, 1024, 16, 72), XL_SHAPE, (3, 1000, 16, 72), (2, 65, 16, 72),
+    (4, 17, 4, 72), (1, 1, 2, 72))]
 KERNEL_CASES = [
     (DIT_SHAPE, torch.bfloat16),
     *((shape, torch.bfloat16) for shape in DIT_GROUP_SHAPES),
@@ -313,6 +322,7 @@ KERNEL_CASES = [
     *TP_CLASSIFY_CASES,
     *RAGGED_CASES,
     *TMA_RAGGED_CASES,
+    *XL_CASES,
 ]
 BWD_CASES = [
     (DIT_SHAPE, torch.bfloat16),
@@ -337,6 +347,7 @@ LN_CASES = [
     ((1024, 64, 256), torch.bfloat16), ((1024, 16, 512), torch.bfloat16),
     ((3, 37, 384), torch.bfloat16), ((4, 256, 768), torch.bfloat16), ((2, 64, 1152), torch.bfloat16),
     ((4, 10, 100), torch.bfloat16), ((2, 8, 4096), torch.bfloat16), ((2, 64, 384), torch.float32),
+    ((240, 1024, 1152), torch.bfloat16),  # DiT-XL/2's last-stage megabatch
 ]
 LN_EPS = 1e-5
 REPEATS = 20
@@ -621,10 +632,11 @@ def phase_build(fa):
             sass[kernel.name] = rows
             continue
         # every bf16 entry of the attention passes runs wgmma fed by TMA: the
-        # forward's 64- and 128-row K/V tilings (64 only at D=128), the dk/dv
-        # and dq passes at 1 and 2 consumer warpgroups, per D
+        # forward's 64- and 128-row K/V tilings (64 only at D=128 and the
+        # forward-only D=72), the dk/dv and dq passes at 1 and 2 consumer
+        # warpgroups, per D
         tensor_core = {e: n for e, n in counts.items() if e.split()[0] in ("flash_fwd", "dkdv", "dq") and "bf16" in e}
-        check(len(tensor_core) == (5 if kernel is fa.FLASH_FWD else 12),
+        check(len(tensor_core) == (6 if kernel is fa.FLASH_FWD else 12),
               f"bf16 entries of {kernel.name} in the SASS: {sorted(counts)}")
         lacking = sorted(e for e, n in tensor_core.items() if not (n["hgmma"] and n["utmaldg"]))
         check(not lacking, f"bf16 entries of {kernel.name} without HGMMA or UTMALDG: "
@@ -640,7 +652,9 @@ def phase_kernel(fa):
         q, k, v = strided_qkv(shape, dtype, gen)
         got = fa.FLASH_FWD(q, k, v)
         torch.cuda.synchronize()
-        want = fa.flash_attention_reference(q, k, v)
+        # the plain version's fp32 scores, 64 batch rows at a time (DiT-XL/2's 1,000 rows would take 67 GB)
+        want = torch.cat([fa.flash_attention_reference(q[i:i + 64], k[i:i + 64], v[i:i + 64])
+                          for i in range(0, shape[0], 64)])
         check(got.dtype == dtype and got.shape == q.shape, f"output {got.dtype} {got.shape}")
         check(bool(torch.isfinite(got).all()), f"non-finite kernel output at {shape}")
         err = (got.float() - want.float()).abs().max().item()
@@ -665,6 +679,24 @@ def phase_kernel(fa):
                 4 * b * h * s * s * d, 4 * q.numel() * q.element_size(), dtype
             )
             print(f"[3 kernel] {shape} bf16 median: kernel {record['ms']:.4f} ms (with lse {lse_ms:.4f} ms), plain {record['plain_ms']:.4f} ms; in turns of {TURN_REPS} (kernel, SDPA, SDPA, kernel): kernel {record['ms']:.4f} ms, SDPA {record['library_ms']:.4f} ms, kernel/SDPA {record['library_ratio']:.3f}; single calls: kernel {record['call_ms']:.4f} ms, SDPA {record['library_call_ms']:.4f} ms; host {record['host_us']:.1f} us per wrapper call; bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
+        if shape == XL_SHAPE:
+            # the roofline counts the model's work at D = 72, not the 80 columns the kernel pads to;
+            # the plain route (dot_product_attention: fp32 logits) is timed on 16 of the rows
+            from diffusion_classifier_tpu_torch.ops.attention import dot_product_attention
+
+            b, s, h, d = shape
+            xl = record["xl"] = {"shape": list(shape), "max_abs_err": err}
+            q16, k16, v16 = q[:16], k[:16], v[:16]
+            xl["plain_ms_16_rows"] = cuda_ms(lambda: dot_product_attention(q16, k16, v16))
+            xl["kernel_ms_16_rows"] = cuda_ms(lambda: fa.FLASH_FWD(q16, k16, v16))
+            qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            timed_in_turns(xl, lambda: fa.FLASH_FWD(q, k, v), lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            xl["bound_ms"], xl["bound_by"] = bound(4 * b * h * s * s * d, 4 * q.numel() * q.element_size(), dtype)
+            xl["roofline_pct"] = 100 * xl["bound_ms"] / xl["ms"]
+            print(f"[3 kernel] {shape} bf16 (D=72, padded to 80): kernel {xl['ms']:.4f} ms, SDPA {xl['library_ms']:.4f} ms "
+                  f"(kernel/SDPA {xl['library_ratio']:.3f}), bound {xl['bound_ms']:.4f} ms ({xl['bound_by']}, "
+                  f"{xl['roofline_pct']:.1f}% of it); 16 rows: kernel {xl['kernel_ms_16_rows']:.4f} ms, "
+                  f"plain route {xl['plain_ms_16_rows']:.4f} ms")
     return record
 
 

@@ -43,8 +43,19 @@
 //   Tilings: kBlockN = 128 at D ≤ 64 and seq > 64 (half the barrier round
 //   trips of 64-row tiles); 64 at seq ≤ 64 (the UNets' 16 and 64 tokens,
 //   where a 128-row tile would be mostly padding; `kShortSeq` is that one
-//   threshold) and at D = 128 (a 128-column score tile, the output and P
+//   threshold) and at D = 128 and 72 (a 128-column score tile, the output and P
 //   would spill the consumers' registers).
+//   D = 72 (DiT-XL/2, 16 heads × 72): 72 is no multiple of the 16 values a
+//   `wgmma` depth step takes, so the tiles are padded to 80 columns inside
+//   the kernel (Tile72 in flash_sm90.cuh): columns 0..63 in the 128-byte
+//   swizzled box of D = 64, columns 64..79 in a box of 32-byte rows loaded
+//   through a second tensor map of the true width 72, which TMA fills with
+//   zeros past column 71. q·kᵀ runs 5 depth steps, P·V an n64 and an n16
+//   product, and only the 72 true output columns are stored: 11% more
+//   products than the model's work, where a pad to 128 would cost 78%. K/V
+//   tiles of 64 rows, as at D = 128: with 128 the consumers spilled 112
+//   bytes and ran 10% slower (PERF.md). bf16 only (the scalar fp32 kernel
+//   steps D in 16s), forward only (the backward has no D = 72 entry).
 //   Measured on the card and not kept (PERF.md): two consumer
 //   warpgroups a block sharing the K/V tiles, with or without FA3's
 //   ping-pong between them or the next tile's S product issued before this
@@ -284,9 +295,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // sequences up to this many rows take 64-row K/V tiles
 constexpr int kShortSeq = 64;
 
+// The shared-memory tile of a head dim: Tile<D>, or at D = 72 the padded Tile72.
+template <int D>
+struct FwdTile {
+  using type = fa_sm90::Tile<D>;
+};
+template <>
+struct FwdTile<72> {
+  using type = fa_sm90::Tile72;
+};
+
 template <int D, int kBlockN_>
 struct FwdTiling {
-  using Tile = fa_sm90::Tile<D>;
+  using Tile = typename FwdTile<D>::type;
+  // the depth the products run over: D, or 80 at D = 72 (its columns 72..79 zeros)
+  static constexpr int kDepth = D == 72 ? 80 : D;
   using Budget = fa_sm90::Budget<1, 2>;   // one consumer warpgroup, two blocks an SM
   static constexpr int kBlockN = kBlockN_;
   static constexpr int kBlockM = 64;      // q rows per block
@@ -345,11 +368,27 @@ __device__ __forceinline__ void online_softmax(float (&sc)[kBlockN / 2], int n0,
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 }
 
+// One operand's rows row0..row0+rows−1 into the tile at `base` (one thread);
+// `tail` is Tile72's second tensor map, unread at the other head dims.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t base, int rows, const CUtensorMap* map,
+                                          const CUtensorMap* tail, uint32_t bar, int head,
+                                          int batch, int row0) {
+  if constexpr (D == 72) {
+    fa_sm90::Tile72::load(base, rows, map, tail, bar, head, batch, row0);
+  } else {
+    fa_sm90::Tile<D>::load(base, rows, map, bar, head, batch, row0);
+  }
+}
+
 template <int D, int kBlockN>
 __global__ void __launch_bounds__(256, 2)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tq_tail,
+                       const __grid_constant__ CUtensorMap tk_tail,
+                       const __grid_constant__ CUtensorMap tv_tail, bf16* __restrict__ o,
                        float* __restrict__ lse, int seq, Strides os, float scale_log2e) {
   using namespace fa_sm90;
   using Tiling = FwdTiling<D, kBlockN>;
@@ -357,7 +396,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   using Budget = typename Tiling::Budget;
   constexpr int kStages = Tiling::kStages;
   constexpr int kBlockM = Tiling::kBlockM;
-  constexpr int kDTiles = D / 8;  // n8 blocks of the output
+  constexpr int kDepth = Tiling::kDepth;
+  constexpr int kDTiles = D / 8;  // n8 blocks of the output that are stored
 
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[Tiling::kBars];
@@ -391,27 +431,32 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       prefetch_tensormap(&tq);
       prefetch_tensormap(&tk);
       prefetch_tensormap(&tv);
+      if constexpr (D == 72) {
+        prefetch_tensormap(&tq_tail);
+        prefetch_tensormap(&tk_tail);
+        prefetch_tensormap(&tv_tail);
+      }
       mbar_arrive_expect_tx(q_full, Tiling::kQBytes);
-      Tl::load(sq, kBlockM, &tq, q_full, head, batch, q0);
+      load_tile<D>(sq, kBlockM, &tq, &tq_tail, q_full, head, batch, q0);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         // the stage's previous tile has been read (passes at once on round 0)
         mbar_wait(empty + 8 * s, ((j / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(k_full + 8 * s, Tiling::kKVBytes);
-        Tl::load(sk + s * Tiling::kKVBytes, kBlockN, &tk, k_full + 8 * s, head, batch,
-                 j * kBlockN);
+        load_tile<D>(sk + s * Tiling::kKVBytes, kBlockN, &tk, &tk_tail, k_full + 8 * s, head,
+                     batch, j * kBlockN);
         mbar_arrive_expect_tx(v_full + 8 * s, Tiling::kKVBytes);
-        Tl::load(sv + s * Tiling::kKVBytes, kBlockN, &tv, v_full + 8 * s, head, batch,
-                 j * kBlockN);
+        load_tile<D>(sv + s * Tiling::kKVBytes, kBlockN, &tv, &tv_tail, v_full + 8 * s, head,
+                     batch, j * kBlockN);
       }
     }
   } else {
     // the consumer warpgroup
     setmaxnreg_inc<Budget::kConsumerRegs>();
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, t = lane & 3;
-    float acc[D / 2], sc[kBlockN / 2];
+    float acc[kDepth / 2], sc[kBlockN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kDepth / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < kBlockN / 2; ++i) sc[i] = 0.f;
     // rows g and g + 8 of this warp's band: running max of the unscaled
@@ -429,7 +474,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(k_full + 8 * s, parity);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < kDepth / 16; ++kk)
         wgmma_ss<kBlockN>(sc, Tl::desc_k(sq, kBlockM, 0, kk), Tl::desc_k(kt, kBlockN, 0, kk),
                           kk > 0);
       wgmma_commit();
@@ -438,7 +483,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
       online_softmax<kBlockN>(sc, j * kBlockN, seq, scale_log2e, t, m, l, alpha);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < kDepth / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
       // O += bf16(P)·V: the score accumulators are the A operand
       uint32_t pa[kBlockN / 16][4];
@@ -447,7 +492,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(v_full + 8 * s, parity);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) wgmma_rs<D>(acc, pa[kk], vt, kBlockN, kk);
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        if constexpr (D == 72) {
+          wgmma_rs72(acc, pa[kk], vt, kBlockN, kk);
+        } else {
+          wgmma_rs<D>(acc, pa[kk], vt, kBlockN, kk);
+        }
+      }
       wgmma_commit();
       wgmma_wait0();
       fence_regs(acc);
@@ -494,9 +545,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 
 template <int D, int kBlockN>
-cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                         void* o, float* lse, int batch, int seq, int heads, Strides os,
-                         float scale_log2e, cudaStream_t stream) {
+cudaError_t launch_wgmma(const CUtensorMap (&maps)[6], void* o, float* lse, int batch, int seq,
+                         int heads, Strides os, float scale_log2e, cudaStream_t stream) {
   using Tiling = FwdTiling<D, kBlockN>;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, kBlockN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -504,29 +554,39 @@ cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk, const CUt
   if (err != cudaSuccess) return err;
   dim3 grid((seq + Tiling::kBlockM - 1) / Tiling::kBlockM, heads, batch);
   flash_fwd_wgmma_kernel<D, kBlockN><<<grid, Tiling::Budget::kThreads, Tiling::kSmem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), lse, seq, os, scale_log2e);
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], static_cast<bf16*>(o), lse, seq, os,
+      scale_log2e);
   return cudaGetLastError();
 }
 
-// one tensor map per operand, then the tiling for this sequence length
+// one tensor map per operand (two at D = 72: Tile72's 64- and 16-column
+// boxes; the other head dims pass the first three again), then the tiling
+// for this sequence length
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
                 int seq, int heads, Strides qs, Strides ks, Strides vs, Strides os,
                 float scale_log2e, cudaStream_t stream) {
-  CUtensorMap tq, tk, tv;
+  CUtensorMap maps[6];
+  const void* ptrs[3] = {q, k, v};
+  const Strides strides[3] = {qs, ks, vs};
   int err = fa_sm90::bind_context();
-  if (err == 0) err = fa_sm90::encode_bshd(&tq, q, batch, seq, heads, D, qs);
-  if (err == 0) err = fa_sm90::encode_bshd(&tk, k, batch, seq, heads, D, ks);
-  if (err == 0) err = fa_sm90::encode_bshd(&tv, v, batch, seq, heads, D, vs);
+  for (int i = 0; i < 3 && err == 0; ++i) {
+    err = fa_sm90::encode_bshd(&maps[i], ptrs[i], batch, seq, heads, D, strides[i]);
+    if (err == 0 && D == 72)
+      err = fa_sm90::encode_bshd(&maps[3 + i], ptrs[i], batch, seq, heads, D, strides[i], 16);
+    else
+      maps[3 + i] = maps[i];
+  }
   if (err != 0) return err;
-  // 128-row K/V tiles halve the barrier round trips; at D = 128 their
+  // 128-row K/V tiles halve the barrier round trips; at D = 128 (and at
+  // D = 72, whose 40 output accumulators spill 112 bytes there) their
   // scores, the output and P would spill the consumers' registers
-  if constexpr (D == 128) {
-    return launch_wgmma<D, 64>(tq, tk, tv, o, lse, batch, seq, heads, os, scale_log2e, stream);
+  if constexpr (D == 128 || D == 72) {
+    return launch_wgmma<D, 64>(maps, o, lse, batch, seq, heads, os, scale_log2e, stream);
   } else {
     if (seq <= kShortSeq)
-      return launch_wgmma<D, 64>(tq, tk, tv, o, lse, batch, seq, heads, os, scale_log2e, stream);
-    return launch_wgmma<D, 128>(tq, tk, tv, o, lse, batch, seq, heads, os, scale_log2e, stream);
+      return launch_wgmma<D, 64>(maps, o, lse, batch, seq, heads, os, scale_log2e, stream);
+    return launch_wgmma<D, 128>(maps, o, lse, batch, seq, heads, os, scale_log2e, stream);
   }
 }
 
@@ -534,11 +594,17 @@ template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
            int batch, int seq, int heads, Strides qs, Strides ks, Strides vs, Strides os,
            float c, cudaStream_t st) {
-  if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, c, st);
-  if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, c, st);
-  return cudaErrorInvalidValue;
+  if constexpr (D == 72) {  // bf16 only: the scalar fp32 kernel steps D in 16s
+    if (dtype == 1)
+      return launch_bf16<D>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, c, st);
+    return cudaErrorInvalidValue;
+  } else {
+    if (dtype == 0)
+      return launch_f32<D>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, c, st);
+    if (dtype == 1)
+      return launch_bf16<D>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, c, st);
+    return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -564,6 +630,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   switch (dim) {
     case 32: return launch<32>(dtype, q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, scale_log2e, st);
     case 64: return launch<64>(dtype, q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, scale_log2e, st);
+    case 72: return launch<72>(dtype, q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, scale_log2e, st);
     case 128: return launch<128>(dtype, q, k, v, o, lse, batch, seq, heads, qs, ks, vs, os, scale_log2e, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -224,6 +224,46 @@ struct Tile {
   }
 };
 
+// D = 72 (DiT-XL/2): a `wgmma` steps through the depth 16 values at a time,
+// so the kernel pads the head dim to 80. A [rows][72] tile is two column
+// boxes: columns 0..63 as Tile<64> lays them (128-byte rows, 128-byte
+// swizzle), then, after them, columns 64..79 in 32-byte rows with the 32-byte
+// swizzle (its 8-row atom is 256 bytes). Both boxes are loaded through tensor
+// maps of the true width 72, so TMA fills columns 72..79 with zeros: they add
+// nothing to q·kᵀ, and the output columns they give are never stored.
+struct Tile72 {
+  static constexpr int kPadded = 80;
+  static constexpr int kBoxRows = 64;
+  static constexpr uint32_t bytes(int rows) { return static_cast<uint32_t>(rows) * kPadded * 2; }
+
+  // the 16-column box of a `rows`-row tile
+  __device__ static uint32_t tail(uint32_t base, int rows) { return base + rows * 128; }
+
+  // K-major operand: steps kk 0..3 read the 128-byte box, step 4 the 32-byte one
+  __device__ static uint64_t desc_k(uint32_t base, int rows, int r0, int kk) {
+    if (kk < 4) return make_desc(base + r0 * 128 + kk * 32, 16, 1024, 1);
+    return make_desc(tail(base, rows) + r0 * 32, 16, 256, 3);
+  }
+
+  // MN-major operand: depth rows 16·kk..16·kk+15 of box nb (0: columns 0..63, 1: 64..79)
+  __device__ static uint64_t desc_mn(uint32_t base, int rows, int kk, int nb) {
+    if (nb == 0) return make_desc(base + kk * 16 * 128, rows * 128, 1024, 1);
+    return make_desc(tail(base, rows) + kk * 16 * 32, rows * 32, 256, 3);
+  }
+
+  // Rows row0..row0+rows−1 of one (head, batch): `map` gives columns 0..63,
+  // `tail_map` (16-column boxes) columns 64..79. One thread.
+  __device__ static void load(uint32_t base, int rows, const CUtensorMap* map,
+                              const CUtensorMap* tail_map, uint32_t bar, int head, int batch,
+                              int row0) {
+    for (int rb = 0; rb < rows / kBoxRows; ++rb) {
+      tma_load_4d(base + rb * kBoxRows * 128, map, bar, 0, head, row0 + rb * kBoxRows, batch);
+      tma_load_4d(tail(base, rows) + rb * kBoxRows * 32, tail_map, bar, 64, head,
+                  row0 + rb * kBoxRows, batch);
+    }
+  }
+};
+
 // D[64 x 32] (+)= A·B, A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
                                              int accumulate) {
@@ -255,6 +295,18 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 16] += A·B, A from registers (the accumulator layout packed to bf16), B
+// MN-major in shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
 }
 
 // D[64 x 32] += A·B, A from registers (the accumulator layout packed to bf16), B
@@ -310,6 +362,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[
   }
 }
 
+// The D = 72 step: n64 over Tile72's first box into d[0..31], n16 over the
+// second into d[32..39] (output columns 64..79; 72..79 are padding).
+__device__ __forceinline__ void wgmma_rs72(float (&d)[40], const uint32_t (&a)[4], uint32_t base,
+                                           int rows, int kk) {
+  wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&d[0]), a, Tile72::desc_mn(base, rows, kk, 0));
+  wgmma_rs_n16(*reinterpret_cast<float(*)[8]>(&d[32]), a, Tile72::desc_mn(base, rows, kk, 1));
+}
+
 // ---- host: tensor maps over [B, S, H, D] bf16 views
 
 // returned by the C entry points when cuTensorMapEncodeTiled fails: this
@@ -350,14 +410,15 @@ inline int bind_context() { return static_cast<int>(cudaFree(nullptr)); }
 
 // Encode a map over the view [batch, seq, heads, dim] (element strides `st`,
 // last dim contiguous) as the 4-D tensor (dim, heads, seq, batch) with byte
-// strides, boxes of (min(dim, 64), 1, 64, 1) and the swizzle the kernels'
-// descriptors read (128 B; 64 B at dim 32). The base must be 16-byte aligned
-// and every stride a multiple of 16 bytes (the wrapper's `_aligned16`); the
-// stride of a dimension of size 1 is never used and is given as a
-// contiguous layout would have it. Returns
-// 0 or kEncodeError + the CUresult.
+// strides, boxes of (box_cols, 1, 64, 1) and the swizzle the kernels'
+// descriptors read: box_cols 64 (the default above D = 32) takes 128 B, 32
+// (the default at D = 32) 64 B, 16 (Tile72's second box) 32 B. The base must
+// be 16-byte aligned and every stride a multiple of 16 bytes (the wrapper's
+// `_aligned16`); the stride of a dimension of size 1 is never used and is
+// given as a contiguous layout would have it. Returns 0 or kEncodeError + the
+// CUresult.
 inline int encode_bshd(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,
-                       int dim, Strides st) {
+                       int dim, Strides st, int box_cols = 0) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
   // a dimension of size 1 gets the stride of a contiguous layout
@@ -369,11 +430,14 @@ inline int encode_bshd(CUtensorMap* map, const void* ptr, int batch, int seq, in
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {bytes(heads, st.h, row), bytes(seq, st.s, row * heads),
                                  bytes(batch, st.b, row * heads * seq)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(dim < 64 ? dim : 64), 1, 64, 1};
+  if (box_cols == 0) box_cols = dim < 64 ? dim : 64;
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, 64, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          dim < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
 }

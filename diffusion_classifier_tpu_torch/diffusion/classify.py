@@ -42,7 +42,13 @@ holding ``tournament.auto_group`` (the group size, with the card's free
 memory), one ``tournament.group`` a group of evaluations (draws, noising,
 the denoiser's forwards, the errors and the dense table) and
 ``tournament.select`` (the means, the sort, the kept classes); counters
-``tournament.stages`` and ``tournament.groups``.
+``tournament.stages``, ``tournament.groups``, ``tournament.rows`` (the
+(image, class, evaluation) rows sent to the denoiser) and
+``tournament.pruned`` (the candidates a stage drops, over the images).
+
+A backbone may give the bytes its classify row takes on the card
+(``row_bytes``, e.g. :meth:`..models.dit.DiT.classify_row_bytes`): where
+that exceeds ``ROW_BYTES_PER_ELEM`` a row, the card's group size counts it.
 """
 
 from __future__ import annotations
@@ -102,13 +108,15 @@ def auto_eval_group(
     return _largest_group(n_evals, batch * k_classes, budget)
 
 
-def card_eval_group(n_evals: int, batch: int, k_classes: int, img_elems: int, free_bytes: int) -> int:
+def card_eval_group(n_evals: int, batch: int, k_classes: int, img_elems: int, free_bytes: int,
+                    row_bytes: int = 0) -> int:
     """The group size on the card: the largest divisor G of ``n_evals`` whose megabatch fits.
 
     A megabatch of ``B·K·G`` rows takes ``ROW_BYTES_PER_ELEM · img_elems``
-    bytes a row; it must fit in ``FREE_MEMORY_SHARE · free_bytes``.
+    bytes a row, or ``row_bytes`` where the backbone counts more; it must
+    fit in ``FREE_MEMORY_SHARE · free_bytes``.
     """
-    row_bytes = ROW_BYTES_PER_ELEM * max(img_elems, 1)
+    row_bytes = max(ROW_BYTES_PER_ELEM * max(img_elems, 1), row_bytes)
     return _largest_group(n_evals, batch * k_classes, int(FREE_MEMORY_SHARE * free_bytes) // row_bytes)
 
 
@@ -166,6 +174,7 @@ def make_classifier(
     tail_fn: Callable = None,
     trace: bool = False,
     data_rows: tuple = (0, 1),
+    row_bytes: Optional[Callable] = None,
 ):
     """Build ``classify(x, labels, draws) -> predicted class ids [B]``.
 
@@ -176,7 +185,8 @@ def make_classifier(
     predictions (0 = all classes at once, -1 = 1 at batch ≥ 16). With
     ``trace=True`` it also returns, per stage, ``{"mean", "cand"}``.
     ``scan_unroll`` is ignored (see the module docstring). ``data_rows``
-    is ``(index, count)`` on the data axis.
+    is ``(index, count)`` on the data axis. ``row_bytes(image_shape)``,
+    where given, is the backbone's own count of a row's card bytes.
 
     ``eval_group=0`` picks the group size ``G`` per stage: on a CUDA device
     from the card's free memory (:func:`card_eval_group`; several processes
@@ -241,6 +251,7 @@ def make_classifier(
                 def score_classes(cand_c):
                     """Errors ``[G, B, cc]`` for candidates ``cand_c [B, cc]``."""
                     ncc = cand_c.shape[1]
+                    profiling.count("tournament.rows", group * b * ncc)
                     rows = (group * b * ncc,) + tuple(x.shape[1:])
                     lg = logsnr_t[:, :, None].expand(group, b, ncc).reshape(-1)
                     lab = cand_c[None].expand(group, b, ncc).reshape(-1)
@@ -282,7 +293,8 @@ def make_classifier(
         if megabatch_target is not None or x.device.type != "cuda":
             return auto_eval_group(n_evals, gb, k, megabatch_target or 512, img_elems)
         free, _ = torch.cuda.mem_get_info(x.device)
-        group = card_eval_group(n_evals, b, k, img_elems, free)
+        own = row_bytes(tuple(x.shape[1:])) if row_bytes is not None else 0
+        group = card_eval_group(n_evals, b, k, img_elems, free, own)
         if dist.is_initialized() and dist.get_world_size() > 1:
             # every rank must draw the same global shapes: the smallest G
             on = x.device if dist.get_backend() == "nccl" else "cpu"
@@ -327,6 +339,7 @@ def make_classifier(
                 with profiling.span("tournament.select"):
                     mean = torch.where(count == ev[i + 1], err_sum / ev[i + 1], math.inf)
                     # lax.top_k(-mean) order: lowest mean first, ties to the lower id
+                    profiling.count("tournament.pruned", b * (cand.shape[1] - keep[i]))
                     cand = torch.sort(mean, dim=1, stable=True).indices[:, : keep[i]]
             if trace:
                 stages.append({"mean": mean, "cand": cand})

@@ -12,6 +12,14 @@ own label table).
 - ``'tail'`` — encodes the labels and runs the backbone's conditioned
   remainder from ``prefix_state``.
 
+A backbone with more output channels than input channels (DiT-XL/2's
+learned Σ: ε in the first ``in_channels``, Σ after them) hands on the ε
+half: every mode that predicts returns the first ``in_channels`` channels
+as a view of the backbone's output, no copy, so the classifier, the
+sampler and the loss compare it with ε as they compare any prediction.
+Training the Σ half (DiT's variational-bound term) is not part of the
+port. Where the counts are equal the output is the backbone's own.
+
 ``deterministic`` goes to the backbone in every mode (False turns the UNet's
 dropout on). It defaults to True, and the loss, the classifier and the
 sampler never pass it, as in the JAX engine.
@@ -43,6 +51,14 @@ class Denoiser(nn.Module):
         super().__init__()
         self.backbone = backbone
         self.encoder = encoder  # None → labels pass straight to the backbone
+        cfg = getattr(backbone, "config", None)
+        cin = getattr(cfg, "in_channels", None)
+        cout = getattr(cfg, "out_ch", getattr(cfg, "out_channels", None))
+        # the predicted channels where the backbone also predicts others (learned Σ)
+        self.pred_channels = cin if cin and cout and cout > cin else None
+
+    def _pred(self, out: torch.Tensor) -> torch.Tensor:
+        return out if self.pred_channels is None else out[..., : self.pred_channels]
 
     def forward(
         self,
@@ -65,11 +81,11 @@ class Denoiser(nn.Module):
                 return self.backbone(z_t, logsnr_t, None, deterministic=deterministic, mode="encode")
             cond = self.encoder(labels) if self.encoder is not None else labels
             if mode == "tail":
-                return self.backbone(
+                return self._pred(self.backbone(
                     None, None, cond, deterministic=deterministic, mode="tail",
                     prefix_state=prefix_state,
-                )
-            return self.backbone(z_t, logsnr_t, cond, deterministic=deterministic)
+                ))
+            return self._pred(self.backbone(z_t, logsnr_t, cond, deterministic=deterministic))
 
 
 def supports_prefix(backbone) -> bool:

@@ -242,6 +242,7 @@ class DiffusionClassifier:
             encode_fn=encode_fn,
             tail_fn=tail_fn,
             data_rows=data_rows,
+            row_bytes=getattr(backbone, "classify_row_bytes", None),
         )
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.state = None

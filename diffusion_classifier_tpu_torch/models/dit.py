@@ -153,6 +153,17 @@ class DiT(nn.Module):
         self.final_proj = Dense(d, p * p * config.out_ch, dtype)
         self._pos_cache: dict = {}
 
+    def classify_row_bytes(self, image_shape: tuple) -> int:
+        """Card bytes of one classify row at a block's peak, for an ``(h, w, c)`` image.
+
+        With no graph a block holds, a token at its MLP: the residual stream,
+        the normed input, the first MLP product and its GELU (``mlp_ratio``
+        times the width each), in the compute dtype.
+        """
+        cfg = self.config
+        tokens = (image_shape[0] // cfg.patch_size) * (image_shape[1] // cfg.patch_size)
+        return (2 + 2 * cfg.mlp_ratio) * tokens * cfg.hidden_dim * self.dtype.itemsize
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init with flax's defaults (lecun-normal kernels, zero biases)."""
         for m in self.modules():

@@ -1,7 +1,8 @@
 """Named architecture presets — the port's copy of ``models/presets.py``.
 
 Each preset is a function ``(config) -> backbone config`` with the JAX
-package's hyperparameters; :func:`build_preset` returns the port's
+package's hyperparameters (``dit-xl-2``, the published DiT-XL/2, is the
+port's alone); :func:`build_preset` returns the port's
 :class:`~.unet.UNetCondition2D` or :class:`~.dit.DiT` at the config's
 dtype. Every UNet preset conditions through ``text_proj`` onto a 512-wide
 cross-attention context with a cross-attention mid block. Presets read
@@ -153,6 +154,29 @@ def chexpert_256_dit_b4(config) -> DiTConfig:
     )
 
 
+def dit_xl_2(config) -> DiTConfig:
+    """DiT-XL/2 (Peebles and Xie, arXiv 2212.09748, Table 1; ``facebook/DiT-XL-2-512``).
+
+    28 layers, 16 heads × 72 (1152 wide), patch 2, ``out_channels`` twice
+    the input's (ε and the learned Σ; the denoiser hands on the ε half),
+    the sample size and class count from the config: 1,024 tokens and 1,000
+    classes on 512 px ImageNet's 64 × 64 × 4 latents.
+    """
+    ch, size = _io(config)
+    return DiTConfig(
+        num_attention_heads=16,
+        attention_head_dim=72,
+        in_channels=ch,
+        out_channels=2 * ch,
+        num_layers=28,
+        sample_size=size,
+        patch_size=2,
+        num_classes=config.classes,
+        attn_backend=config.attn_backend,
+        remat=config.remat,
+    )
+
+
 UNET_PRESETS = {
     "unet-128": unet_128,
     "unet-256": unet_256,
@@ -160,7 +184,7 @@ UNET_PRESETS = {
     "ipmsa-5-unet": ipmsa_5_unet,
     "ipmsa-5-dwt-unet": ipmsa_5_dwt_unet,
 }
-DIT_PRESETS = {"chexpert-256-dit-b4": chexpert_256_dit_b4}
+DIT_PRESETS = {"chexpert-256-dit-b4": chexpert_256_dit_b4, "dit-xl-2": dit_xl_2}
 
 
 def build_preset(name: str, config):

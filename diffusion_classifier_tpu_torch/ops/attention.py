@@ -14,7 +14,8 @@ TPU and is not carried over: ``auto`` takes the kernels until routing is
 measured on the H100 (ROADMAP A2).
 
 Each call is a span, ``attention.flash`` or ``attention.plain`` by the route
-taken, and adds 1 to the counter of the same name (``utils/profiling.py``).
+taken, and adds 1 to the counter of the same name (``utils/profiling.py``);
+a flash call also to ``attention.flash.d<D>``, the counter of its head dim.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ def attention(
         raise ValueError(f"Unknown attention backend {backend!r}")
     if backend != "xla" and supports(q, k, v):
         profiling.count("attention.flash")
+        profiling.count(f"attention.flash.d{q.shape[-1]}")
         with profiling.span("attention.flash"):
             return flash_attention(q, k, v)
     profiling.count("attention.plain")

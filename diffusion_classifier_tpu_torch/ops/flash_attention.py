@@ -73,8 +73,22 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ENCODE_ERROR = 100000
 
 
+#: head dims with a forward and a backward entry, in both dtypes
+_DIMS = (32, 64, 128)
+#: head dims with a bf16 forward entry alone (DiT-XL/2's 72, padded to 80 inside the kernel)
+_FWD_ONLY_DIMS = (72,)
+
+
+def _records_graph(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """True if the kernels take these shapes: equal 4-D ``[B, S, H, D]``, D ∈ {32, 64, 128}.
+
+    D = 72 is taken in bf16 where no autograd graph is recorded: the forward
+    has an entry for it and the backward none, so a D = 72 attention that
+    will be differentiated (or is fp32) stays on the plain route.
 
     The TPU gates also required ``S % 128 == 0`` and ``S ≤ 4096`` (forward),
     ``S ≤ 1024`` (backward); those came from Mosaic's (8, 128) tiling and
@@ -83,7 +97,10 @@ def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         return False
-    return q.shape[-1] in (32, 64, 128)
+    d = q.shape[-1]
+    if d in _FWD_ONLY_DIMS:
+        return q.dtype == torch.bfloat16 and not _records_graph(q, k, v)
+    return d in _DIMS
 
 
 def _aligned16(x: torch.Tensor) -> bool:
@@ -318,7 +335,8 @@ class FlashAttentionForward(CudaKernel):
         if not supports(q, k, v):
             raise ValueError(
                 f"unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-                f"v{tuple(v.shape)}: need equal [B, S, H, D] with D in 32/64/128"
+                f"v{tuple(v.shape)}: need equal [B, S, H, D] with D in 32/64/128, "
+                "or 72 in bf16 without a graph"
             )
         self.build()
         q, k, v = self._aligned(q, k, v)
@@ -352,7 +370,7 @@ class FlashAttentionBackward(CudaKernel):
     def __call__(self, q, k, v, o, do, lse):
         """Launch on CUDA tensors ``[B, S, H, D]`` and ``lse [B, H, S]`` fp32; raises on bad input."""
         _check_inputs({"q": q, "k": k, "v": v, "o": o, "do": do}, q)
-        if not supports(q, k, v):
+        if not supports(q, k, v) or q.shape[-1] not in _DIMS:
             raise ValueError(
                 f"unsupported shapes q{tuple(q.shape)}: need [B, S, H, D] with D in 32/64/128"
             )

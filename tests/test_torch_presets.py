@@ -36,12 +36,16 @@ def _jax_tree_shapes(name):
     return jax.eval_shape(net.init, jax.random.PRNGKey(0), x, lg, cond)
 
 
+#: the port's presets the JAX package has none of (tests/test_torch_dit_xl.py holds them)
+PORT_ONLY = {"dit-xl-2"}
+
+
 def test_port_has_the_jax_presets():
     assert sorted(UNET_PRESETS) == sorted(JAX_UNET_PRESETS)
-    assert sorted(DIT_PRESETS) == sorted(JAX_DIT_PRESETS)
+    assert sorted(set(DIT_PRESETS) - PORT_ONLY) == sorted(JAX_DIT_PRESETS)
 
 
-@pytest.mark.parametrize("name", sorted(UNET_PRESETS) + sorted(DIT_PRESETS))
+@pytest.mark.parametrize("name", sorted(UNET_PRESETS) + sorted(set(DIT_PRESETS) - PORT_ONLY))
 def test_preset_has_the_bridged_jax_tree(name):
     shapes = _jax_tree_shapes(name)
     with torch.device("meta"):

@@ -253,7 +253,8 @@ def test_attention_counters_follow_the_route(backend, route):
     attention(q, k, v, backend=backend)
     attention(q[..., :16], k[..., :16], v[..., :16], backend=backend)  # D=16: outside the kernels' gate
     got = profiling.counters()
-    assert got == ({"attention.flash": 1, "attention.plain": 1} if route == "flash" else {"attention.plain": 2})
+    assert got == ({"attention.flash": 1, "attention.flash.d32": 1, "attention.plain": 1} if route == "flash"
+                   else {"attention.plain": 2})
 
 
 def test_count_returns_the_total_and_reset_clears():
