@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA flash-attention forward and backward and the fused
-LayerNorm from ``diffusion_classifier_tpu_torch/csrc/`` (one ``nvcc`` each,
+LayerNorm and GroupNorm from ``diffusion_classifier_tpu_torch/csrc/`` (one ``nvcc`` each,
 started together) and drives the port's main paths at full width with seeded random
 weights, on synthetic data and on data-format trees written from a seed:
 CheXpert DiT-b4 (384 = 6 × 64, 12 layers, 256 px → Haar DWT 128 × 128 × 12
@@ -23,7 +23,7 @@ and evaluation; and the flagship UNet conditioned on a T5 class table
 (``encoder_type 't5'``) through the CIFAR-10 entry points. Phases:
 
 1. device: a CUDA device is required; prints the card's name and power limit;
-2. build: compiles both kernels and the fused LayerNorm, prints the seconds, ptxas' register use and
+2. build: compiles both kernels and the fused norms, prints the seconds, ptxas' register use and
    spills, and the ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA load)
    instructions of every kernel entry from ``cuobjdump -sass`` (found beside
    ``nvcc``); fails, naming the entry, if a bf16 entry of the forward, dk/dv
@@ -47,6 +47,19 @@ and evaluation; and the flagship UNet conditioned on a T5 class table
    kernel, plain and ``F.layer_norm`` (a yardstick) ms at the DiT's
    ``[128, 1024, 384]``, TB/s and the bytes' bound; each later path's
    launches by phase, and no input copied on any of them;
+3c. the fused GroupNorm (``csrc/group_norm.cu``, with and without its SiLU
+   epilogue, eps 1e-5 and 1e-6) vs its plain version at ``GN_CASES``, every
+   shape the UNets' no-grad paths launch it at, and group sizes of no
+   whole half chunk (``GN_ODD``): at least 99.9% of the bf16 outputs
+   identical and none more than 2⁻⁶ of the output's magnitude (at least 1)
+   apart, fp32 within 1e-5; 21 runs at the CIFAR cell's largest norm
+   bit-identical; kernel, plain chain, plain chain + ``F.silu`` and
+   ``F.group_norm`` (a yardstick) ms at that norm (``[1024, 32, 32, 128]``,
+   32 groups), TB/s and the bytes' bound; the two-pass kernel and the plain
+   chain + ``F.silu`` ms at a CheXpert UNet norm too tall to hold
+   (``GN_STREAM_SHAPE``) and its bytes' bound; the
+   phases' launches, no input copied, and every shape they launched at
+   held here (``kernel_shapes``, ``check_covered``);
 4. the full-width DiT-b4 forward with the kernel vs with the plain
    attention on the same weights: relative L2 ≤ 1e-2, 12 launches;
 5. the classify entry point: a seeded checkpoint, ``inference_torch.main()``
@@ -350,6 +363,32 @@ LN_CASES = [
     ((240, 1024, 1152), torch.bfloat16),  # DiT-XL/2's last-stage megabatch
 ]
 LN_EPS = 1e-5
+# the fused GroupNorm (csrc/group_norm.cu) against its plain version at every
+# (H, W, C, groups) the UNets' no-grad paths launch it at, one line a UNet
+# (square images): the CIFAR flagship (and the t5 UNet) in bf16 and, through
+# the tensor-parallel ranks of phase 27, in fp32; the CheXpert UNet at 128 px
+# after the DWT; the IPMSA UNet at 128 px. The split resnets' halves take
+# half the groups.
+GN_UNETS = {
+    "cifar": [(32, 128, 32), (32, 128, 16), (16, 128, 32), (16, 128, 16), (16, 384, 32), (8, 128, 32),
+              (8, 256, 32), (8, 256, 16), (8, 384, 32), (8, 768, 32), (4, 256, 32), (4, 512, 32),
+              (4, 512, 16), (4, 768, 32)],
+    "chexpert": [(128, 256, 32), (128, 256, 16), (128, 768, 32), (64, 256, 32), (64, 512, 32), (64, 512, 16),
+                 (64, 768, 32), (64, 1280, 32), (32, 512, 32), (32, 768, 32), (32, 768, 16), (32, 1280, 32)],
+    "ipmsa": [(128, 128, 32), (128, 128, 16), (128, 384, 32), (64, 128, 32), (64, 256, 32), (64, 256, 16),
+              (64, 384, 32), (32, 256, 32), (32, 256, 16), (32, 768, 32), (16, 256, 32), (16, 512, 32),
+              (16, 512, 16), (16, 768, 32), (16, 1280, 32), (8, 512, 32), (8, 768, 32), (8, 768, 16),
+              (8, 1280, 32)],
+}
+# group sizes of no whole half chunk, which no path here launches but the kernel
+# takes (a partial a channel): diffusers' UNet2DModel widths 224-448-672 (cg 7,
+# 14, 21) and SD's 320 (cg 10, two passes at 64 x 64) in 32 groups
+GN_ODD = [(32, 224, 32), (16, 448, 32), (8, 672, 32), (64, 320, 32)]
+GN_CASES = sorted(
+    {((h, h, c, g), torch.bfloat16) for cases in [*GN_UNETS.values(), GN_ODD] for h, c, g in cases}
+    | {((h, h, c, g), torch.float32) for h, c, g in GN_UNETS["cifar"] + GN_ODD}, key=str)
+GN_SHAPE, GN_GROUPS = (1024, 32, 32, 128), 32  # the CIFAR cell's tail rows at 32 x 32
+GN_STREAM_SHAPE = (16, 128, 128, 256)  # the CheXpert UNet's first norms at 128 x 128: two passes
 REPEATS = 20
 # repetitions of each turn when a kernel is timed against its library call,
 # and the back-to-back calls in each repetition: with one call, the event
@@ -549,7 +588,7 @@ def entry_name(text):
     """
     match = re.search(r"(flash_fwd|delta|dkdv|dq)(_wgmma)?_kernelI(13__nv_bfloat16|f)?Li(\d+)E((?:Li\d+E)*)", text)
     if not match:
-        return ln_entry_name(text) or text.strip()
+        return ln_entry_name(text) or gn_entry_name(text) or text.strip()
     name, wgmma, dtype, dim, rest = match.groups()
     label = f"{name} {'f32' if dtype == 'f' else 'bf16'} D={dim}"
     if wgmma:
@@ -576,6 +615,17 @@ def ln_entry_name(text):
     return label + (f" lanes={values[1]} chunks={values[2]}" if len(values) == 3 else "")
 
 
+def gn_entry_name(text):
+    """``"group_norm_tile bf16 chunks=8 acc=2"`` for a mangled GroupNorm entry in ``text``; None if none."""
+    match = re.search(r"(group_norm_(?:tile|stream))I(13__nv_bfloat16|f)((?:Li\d+E)+)", text)
+    if not match:
+        return None
+    name, dtype, ints = match.groups()
+    values = re.findall(r"Li(\d+)E", ints)
+    chunks = f" chunks={values[0]}" if name == "group_norm_tile" else ""
+    return f"{name} {_LN_TYPES[dtype]}{chunks} acc={values[-1]}"
+
+
 def sass_counts(fa, kernel):
     """``{entry: {"hgmma": n, "utmaldg": n}}`` over ``kernel``'s library (``cuobjdump -sass``).
 
@@ -599,12 +649,13 @@ def sass_counts(fa, kernel):
 
 
 def phase_build(fa):
+    from diffusion_classifier_tpu_torch.ops import group_norm as gn
     from diffusion_classifier_tpu_torch.ops import layer_norm as ln
 
-    seconds = fa.build_all(fa.FLASH_FWD, fa.FLASH_BWD, ln.LAYER_NORM)
-    print(f"[2 build] flash_attn_fwd, flash_attn_bwd and layer_norm built and loaded in {seconds:.2f} s")
+    seconds = fa.build_all(fa.FLASH_FWD, fa.FLASH_BWD, ln.LAYER_NORM, gn.GROUP_NORM)
+    print(f"[2 build] flash_attn_fwd, flash_attn_bwd, layer_norm and group_norm built and loaded in {seconds:.2f} s")
     sass = {}
-    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD, ln.LAYER_NORM):
+    for kernel in (fa.FLASH_FWD, fa.FLASH_BWD, ln.LAYER_NORM, gn.GROUP_NORM):
         # ptxas -v: one "Compiling entry function '<mangled name>'" line, then
         # its spills, then its registers (none when the library was built
         # before this process)
@@ -630,6 +681,15 @@ def phase_build(fa):
             lacking = sorted(e for e, n in rows.items() if not n["ldg128"])
             check(not lacking, f"layer_norm entries without 16-byte loads: {lacking}")
             sass[kernel.name] = rows
+            continue
+        if kernel is gn.GROUP_NORM:
+            # every entry (2 types x 4 held chunk counts and the two-pass kernel x 3
+            # partial layouts) loads and stores its tile 16 bytes a thread
+            entries = {e: n for e, n in counts.items() if e.startswith("group_norm_")}
+            check(len(entries) == 2 * 5 * 3, f"entries of group_norm in the SASS: {sorted(entries)}")
+            lacking = sorted(e for e, n in entries.items() if not (n["ldg128"] and n["stg128"]))
+            check(not lacking, f"group_norm entries without 16-byte loads and stores: {lacking}")
+            sass[kernel.name] = entries
             continue
         # every bf16 entry of the attention passes runs wgmma fed by TMA: the
         # forward's 64- and 128-row K/V tilings (64 only at D=128 and the
@@ -804,6 +864,94 @@ def phase_layer_norm():
                   f"single calls: kernel {record['call_ms']:.4f} ms; host {record['host_us']:.1f} us per wrapper call; "
                   f"bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
     ln.LAYER_NORM.copies = 0  # the paths below must copy nothing
+    return record
+
+
+def phase_group_norm():
+    """The fused GroupNorm against its plain version at ``GN_CASES``; times at the CIFAR cell's largest norm and a two-pass one."""
+    from diffusion_classifier_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(shape, dtype):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+        c = shape[-1]
+        return x, 1 + 0.05 * torch.randn(c, generator=gen, device="cuda"), 0.02 * torch.randn(c, generator=gen, device="cuda")
+
+    record = {"shapes": []}
+    for (h, w, c, g), dtype in GN_CASES:
+        x, scale, bias = inputs((2, h, w, c), dtype)
+        same, err = 1.0, 0.0
+        for eps in (1e-5, 1e-6):
+            for silu in (False, True):
+                kw = dict(num_groups=g, eps=eps, silu=silu)
+                got = gn.GROUP_NORM(x, scale, bias, **kw)
+                torch.cuda.synchronize()
+                want = gn.group_norm_reference(x, scale, bias, **kw)
+                check(bool(torch.isfinite(got).all()), f"non-finite group_norm output at {(h, w, c, g)}")
+                worst = (got.float() - want.float()).abs().max().item()
+                err = max(err, worst)
+                if dtype == torch.bfloat16:
+                    same = min(same, (got == want).float().mean().item())
+                    # a channel's bf16 w or b across a rounding boundary: about a bf16 ulp of the output
+                    check(worst <= 2.0 ** -6 * max(1.0, want.float().abs().max().item()),
+                          f"group_norm: max |kernel - plain| {worst:.3e} at {(h, w, c, g)}, eps {eps}, SiLU {silu}")
+                else:
+                    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        tile = gn.tiling(h * w, c, c // g, x.element_size())
+        print(f"[3c group_norm] {(h, w, c)} {g} groups {str(dtype)[6:]} tile {tile}: identical {100 * same:.4f}% (fewest of eps 1e-5/1e-6, SiLU off/on), max |kernel - plain| = {err:.3e}")
+        check(same >= 0.999, f"group_norm: {same} of the outputs identical at {(h, w, c, g)}")
+        record["shapes"].append({"shape": [h, w, c], "groups": g, "dtype": str(dtype)[6:], "tile": tile,
+                                 "identical": same, "max_abs_err": err})
+    x, scale, bias = inputs(GN_SHAPE, torch.bfloat16)
+    kw = dict(num_groups=GN_GROUPS, eps=1e-5)
+    got = gn.GROUP_NORM(x, scale, bias, silu=True, **kw)
+    want = gn.group_norm_reference(x, scale, bias, silu=True, **kw)
+    record["identical"] = (got == want).float().mean().item()
+    record["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+    check(record["max_abs_err"] <= 2.0 ** -6 * max(1.0, want.float().abs().max().item()),
+          f"group_norm: max |kernel - plain| {record['max_abs_err']:.3e} at {GN_SHAPE}")
+    again = all(torch.equal(got, gn.GROUP_NORM(x, scale, bias, silu=True, **kw)) for _ in range(REPEATS))
+    check(again, f"group_norm's output differs between runs at {GN_SHAPE}")
+    del got, want
+    record["plain_ms"] = cuda_ms(lambda: gn.group_norm_reference(x, scale, bias, **kw), reps=10)
+    record["plain_silu_ms"] = cuda_ms(lambda: gn.group_norm_reference(x, scale, bias, silu=True, **kw), reps=10)
+    # the yardstick: ATen's own GroupNorm on the NCHW view, bf16 affine, without the SiLU
+    nchw, scale16, bias16 = x.permute(0, 3, 1, 2), scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    timed_in_turns(record, lambda: gn.GROUP_NORM(x, scale, bias, silu=True, **kw),
+                   lambda: F.group_norm(nchw, GN_GROUPS, scale16, bias16, 1e-5))
+    record["none_ms"] = cuda_ms(lambda: gn.GROUP_NORM(x, scale, bias, **kw), reps=TURN_REPS, inner=BACK_TO_BACK)
+    # x in, the output out, the scale and bias: each byte once
+    nbytes = 2 * x.numel() * x.element_size() + 2 * scale.numel() * scale.element_size()
+    record["bound_ms"], record["bound_by"] = bound(0, nbytes, torch.bfloat16)
+    record["tb_per_s"] = nbytes / (record["ms"] * 1e-3) / 1e12
+    print(f"[3c group_norm] {GN_SHAPE} bf16 {GN_GROUPS} groups + SiLU, tile {gn.tiling(1024, 128, 4, 2)}: "
+          f"identical {100 * record['identical']:.4f}%, run {REPEATS + 1} times: bit-identical {again}; "
+          f"kernel {record['ms']:.4f} ms ({record['tb_per_s']:.3f} TB/s, {100 * record['bound_ms'] / record['ms']:.1f}% of the bound), "
+          f"no SiLU {record['none_ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, plain + F.silu {record['plain_silu_ms']:.4f} ms, "
+          f"F.group_norm {record['library_ms']:.4f} ms (kernel/F.group_norm {record['library_ratio']:.3f}); "
+          f"single calls: kernel {record['call_ms']:.4f} ms; host {record['host_us']:.1f} us per wrapper call; "
+          f"bound {record['bound_ms']:.4f} ms ({record['bound_by']})")
+    # the two-pass kernel, which reads the tile a second time, from L2 where it is still there
+    del x
+    x, scale, bias = inputs(GN_STREAM_SHAPE, torch.bfloat16)
+    n, h, w, c = GN_STREAM_SHAPE
+    tile = gn.tiling(h * w, c, c // GN_GROUPS, 2)
+    check(tile[1] == 0, f"group_norm: {GN_STREAM_SHAPE} takes the tile {tile}, not two passes")
+    kw = dict(num_groups=GN_GROUPS, eps=1e-5, silu=True)
+    stream = {"shape": list(GN_STREAM_SHAPE), "tile": tile}
+    stream["ms"], stream["plain_silu_ms"] = in_turns(lambda: gn.GROUP_NORM(x, scale, bias, **kw),
+                                                     lambda: gn.group_norm_reference(x, scale, bias, **kw),
+                                                     reps=10, inner=2)
+    nbytes = 2 * x.numel() * x.element_size() + 2 * scale.numel() * scale.element_size()
+    stream["bound_ms"], _ = bound(0, nbytes, torch.bfloat16)
+    stream["tb_per_s"] = nbytes / (stream["ms"] * 1e-3) / 1e12
+    record["stream"] = stream
+    print(f"[3c group_norm] {GN_STREAM_SHAPE} bf16 {GN_GROUPS} groups + SiLU, two passes, tile {tile}: "
+          f"kernel {stream['ms']:.4f} ms ({stream['tb_per_s']:.3f} TB/s counting x once, "
+          f"{100 * stream['bound_ms'] / stream['ms']:.1f}% of the bound), plain + F.silu {stream['plain_silu_ms']:.4f} ms "
+          f"({stream['plain_silu_ms'] / stream['ms']:.2f}x), bound {stream['bound_ms']:.4f} ms (bytes)")
+    gn.GROUP_NORM.copies = 0  # the paths below must copy nothing
     return record
 
 
@@ -1689,8 +1837,11 @@ def plain_attention_calls():
 
 @contextlib.contextmanager
 def kernel_shapes(fa):
-    """Records the ``(shape, dtype)`` of q at every call of either kernel's wrapper: yields ``{kernel name: set}``."""
-    seen = {fa.FLASH_FWD.name: set(), fa.FLASH_BWD.name: set()}
+    """Records the ``(shape, dtype)`` of q at every call of either attention kernel's wrapper, and
+    ``((H, W, C, groups), dtype)`` of x at every call of the GroupNorm kernel's: yields ``{kernel name: set}``."""
+    from diffusion_classifier_tpu_torch.ops.group_norm import GROUP_NORM
+
+    seen = {fa.FLASH_FWD.name: set(), fa.FLASH_BWD.name: set(), GROUP_NORM.name: set()}
     real = {}
     for kernel in (fa.FLASH_FWD, fa.FLASH_BWD):
         cls = type(kernel)
@@ -1701,6 +1852,14 @@ def kernel_shapes(fa):
             return _call(self, q, *args, **kwargs)
 
         cls.__call__ = recorded
+    cls = type(GROUP_NORM)
+    real[cls] = cls.__call__
+
+    def recorded_norm(self, x, *args, _call=cls.__call__, num_groups, **kwargs):
+        seen[self.name].add(((*x.shape[1:], num_groups), x.dtype))
+        return _call(self, x, *args, num_groups=num_groups, **kwargs)
+
+    cls.__call__ = recorded_norm
     try:
         yield seen
     finally:
@@ -1711,11 +1870,12 @@ def kernel_shapes(fa):
 def check_covered(fa, seen, tag):
     """Fails if a path launched a kernel at a shape that no kernel check held against its plain version."""
     dtypes = (torch.bfloat16, torch.float32)
-    checked = {  # phases 3, 9 and 22; phases 6, 13 and 22
+    checked = {  # phases 3, 9 and 22; phases 6, 13 and 22; phase 3c
         fa.FLASH_FWD.name: set(KERNEL_CASES) | {(IP_SHAPE, torch.bfloat16)}
         | {(shape, dt) for shape in UNET_SHAPES for dt in dtypes},
         fa.FLASH_BWD.name: set(BWD_CASES) | {(IP_SHAPE, torch.bfloat16)}
         | {(shape, dt) for shape in UNET_BWD_SHAPES for dt in dtypes},
+        "group_norm": set(GN_CASES),
     }
     for name, shapes in seen.items():
         print(f"{tag} {name} launched at " + ", ".join(f"{s} {str(d)[6:]}" for s, d in sorted(shapes, key=str)))
@@ -3348,6 +3508,7 @@ def main() -> int:
     from diffusion_classifier_tpu_torch.experiments import cifar10 as cifar
     from diffusion_classifier_tpu_torch.experiments import ipmsa as ip
     from diffusion_classifier_tpu_torch.ops import flash_attention as fa
+    from diffusion_classifier_tpu_torch.ops import group_norm as gn
     from diffusion_classifier_tpu_torch.ops import layer_norm as ln
     from diffusion_classifier_tpu_torch.utils.config import ExperimentConfig
 
@@ -3355,51 +3516,56 @@ def main() -> int:
     sass = phase_build(fa)
     records = {"flash_attn_fwd": phase_kernel(fa), "flash_attn_bwd": phase_backward(fa)}
     ln_record = phase_layer_norm()
-    # the fused LayerNorm's launches on each path of this process, by phase
-    ln_launches, ln_seen = {}, [ln.LAYER_NORM.launches]
+    gn_record = phase_group_norm()
+    # the fused norms' launches on each path of this process, by phase
+    ln_launches, gn_launches, norm_seen = {}, {}, [(ln.LAYER_NORM.launches, gn.GROUP_NORM.launches)]
 
-    def ln_mark(path):
-        ln_launches[path] = ln.LAYER_NORM.launches - ln_seen[-1]
-        ln_seen.append(ln.LAYER_NORM.launches)
+    def norm_mark(path):
+        ln_launches[path] = ln.LAYER_NORM.launches - norm_seen[-1][0]
+        gn_launches[path] = gn.GROUP_NORM.launches - norm_seen[-1][1]
+        norm_seen.append((ln.LAYER_NORM.launches, gn.GROUP_NORM.launches))
 
     config = ExperimentConfig.from_dict(dict(INFERENCE_CONFIG))
     phase_dit(fa, chexpert, config)
-    ln_mark("dit_forward")
+    norm_mark("dit_forward")
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(REPO, "build"))
     try:
         classify_fwd = phase_entry_point(fa, chexpert, ExperimentConfig, workdir)
-        ln_mark("dit_classify")
+        norm_mark("dit_classify")
         phase_dit_grads(fa, chexpert, config)
-        ln_mark("dit_grads")
+        norm_mark("dit_grads")
         train_fwd, train_bwd = phase_train(fa, ExperimentConfig, workdir)
-        ln_mark("dit_train")
-        records["flash_attn_fwd"]["shapes"] += phase_unet_kernel(fa)
-        phase_unet_forward(fa, cifar, ExperimentConfig)
-        ln_mark("unet_forward")
-        unet_classify_fwd, unet_rates = phase_unet_classify(fa, cifar, ExperimentConfig, workdir)
-        ln_mark("unet_classify")
-        sample_fwd, sample_rates = phase_sampling(fa, cifar, chexpert, ExperimentConfig, workdir)
-        ln_mark("sampling")
-        records["flash_attn_bwd"]["shapes"] += phase_unet_backward(fa)
-        phase_unet_grads(fa, cifar, ExperimentConfig)
-        ln_mark("unet_grads")
-        unet_train_fwd, unet_train_bwd, unet_train_rates = phase_unet_train(
-            fa, cifar, ExperimentConfig, workdir
-        )
-        ln_mark("unet_train")
-        trees = phase_trees(workdir)
-        loader_rates = phase_loader(trees, workdir)
-        held = {"18 cx-unet": released("[18 cx-unet]")}
-        cx_attention = phase_cx_unet_forward(fa, cx_unet, ExperimentConfig)
-        held["18 cx-unet train"] = released("[18 cx-unet train]")
-        cx_train_rates, cx_train_launches = phase_cx_unet_train(fa, cx_unet, ExperimentConfig, trees, workdir)
-        held["18 cx-unet classify"] = released("[18 cx-unet classify]")
-        cx_classify_rates, cx_ood = phase_cx_unet_classify(fa, cx_unet, ExperimentConfig, trees, workdir)
-        ln_mark("chexpert_unet")
+        norm_mark("dit_train")
+        # every shape the UNets' no-grad forwards launch the GroupNorm kernel at (phases 10-18)
+        with kernel_shapes(fa) as seen:
+            records["flash_attn_fwd"]["shapes"] += phase_unet_kernel(fa)
+            phase_unet_forward(fa, cifar, ExperimentConfig)
+            norm_mark("unet_forward")
+            unet_classify_fwd, unet_rates = phase_unet_classify(fa, cifar, ExperimentConfig, workdir)
+            norm_mark("unet_classify")
+            sample_fwd, sample_rates = phase_sampling(fa, cifar, chexpert, ExperimentConfig, workdir)
+            norm_mark("sampling")
+            records["flash_attn_bwd"]["shapes"] += phase_unet_backward(fa)
+            phase_unet_grads(fa, cifar, ExperimentConfig)
+            norm_mark("unet_grads")
+            unet_train_fwd, unet_train_bwd, unet_train_rates = phase_unet_train(
+                fa, cifar, ExperimentConfig, workdir
+            )
+            norm_mark("unet_train")
+            trees = phase_trees(workdir)
+            loader_rates = phase_loader(trees, workdir)
+            held = {"18 cx-unet": released("[18 cx-unet]")}
+            cx_attention = phase_cx_unet_forward(fa, cx_unet, ExperimentConfig)
+            held["18 cx-unet train"] = released("[18 cx-unet train]")
+            cx_train_rates, cx_train_launches = phase_cx_unet_train(fa, cx_unet, ExperimentConfig, trees, workdir)
+            held["18 cx-unet classify"] = released("[18 cx-unet classify]")
+            cx_classify_rates, cx_ood = phase_cx_unet_classify(fa, cx_unet, ExperimentConfig, trees, workdir)
+            norm_mark("chexpert_unet")
+        check_covered(fa, {gn.GROUP_NORM.name: seen[gn.GROUP_NORM.name]}, "[10-18 unet]")
         held["19 dit tree"] = released("[19 dit tree]")
         dit_tree = phase_cx_dit_tree(fa, ExperimentConfig, trees, workdir)
-        ln_mark("dit_tree")
+        norm_mark("dit_tree")
         ip_tree = phase_ipmsa_trees(workdir)
         ip_loader = phase_ipmsa_loader(ip_tree, workdir)
         held["22 ipmsa"] = released("[22 ipmsa]")
@@ -3413,12 +3579,12 @@ def main() -> int:
             held["22 ipmsa unet classify"] = released("[22 ipmsa unet classify]")
             ip_classify_rates, ip_explain, ip_classify = phase_ipmsa_unet_classify(
                 fa, ip, ExperimentConfig, ip_tree, workdir)
-            ln_mark("ipmsa_unet")
+            norm_mark("ipmsa_unet")
         check_covered(fa, seen, "[22 ipmsa]")
         held["23 ipmsa dit"] = released("[23 ipmsa dit]")
         with kernel_shapes(fa) as seen:
             ip_dit = phase_ipmsa_dit(fa, ExperimentConfig, ip_tree, workdir)
-            ln_mark("ipmsa_dit")
+            norm_mark("ipmsa_dit")
         check_covered(fa, seen, "[23 ipmsa dit]")
         held["24 resnet"] = released("[24 resnet]")
         ip_resnet = phase_ipmsa_resnet(fa, ExperimentConfig, ip_tree, workdir)
@@ -3430,19 +3596,24 @@ def main() -> int:
         mp_entry = phase_mp_entry(fa, ExperimentConfig, trees, ip_tree, workdir)
         held["29 preempt"] = released("[29 preempt]")
         mp_preempt = phase_mp_preempt(fa, workdir)
-        ln_mark("multi_process_parent")
+        norm_mark("multi_process_parent")
         held["30 t5"] = released("[30 t5]")
         t5 = phase_t5(fa, cifar, ExperimentConfig, workdir)
-        ln_mark("t5")
+        norm_mark("t5")
         held["31 orbax"] = released("[31 orbax]")
         orbax = phase_orbax(fa, ExperimentConfig)
-        ln_mark("orbax")
+        norm_mark("orbax")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"[layer_norm] launches by path: {ln_launches}; copies {ln.LAYER_NORM.copies}")
     check(ln.LAYER_NORM.copies == 0, f"the paths copied {ln.LAYER_NORM.copies} inputs of layer_norm")
     check(ln_launches["dit_classify"] > 0 and ln_launches["unet_classify"] > 0,
           f"a classify path never launched layer_norm: {ln_launches}")
+    print(f"[group_norm] launches by path: {gn_launches}; copies {gn.GROUP_NORM.copies}")
+    check(gn.GROUP_NORM.copies == 0, f"the paths copied {gn.GROUP_NORM.copies} inputs of group_norm")
+    check(all(gn_launches[p] > 0 for p in ("unet_forward", "unet_classify", "sampling", "chexpert_unet", "ipmsa_unet"))
+          and gn_launches["unet_grads"] == 0 and gn_launches["dit_classify"] == 0,
+          f"group_norm launched off the UNets' no-grad paths, or not on one: {gn_launches}")
     check("jax" not in sys.modules, "jax was imported")
     stray = loaded_from_jax_package()
     check(not stray, f"modules loaded from the JAX package: {stray}")
@@ -3521,6 +3692,17 @@ def main() -> int:
             "max_abs_err", "ms", "none_ms", "tb_per_s", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "library_ratio", "call_ms", "library_call_ms", "host_us", "shapes")},
         **{op: {entry: n[op] for entry, n in sass["layer_norm"].items()} for op in ("ldg128", "stg128")},
+    }, {
+        "name": "group_norm",
+        "route": "cuda",
+        "source": "diffusion_classifier_tpu_torch/csrc/group_norm.cu",
+        "replaces": None,
+        "launches": sum(gn_launches.values()),
+        "launches_by_path": gn_launches,
+        **{key: gn_record[key] for key in (
+            "identical", "max_abs_err", "ms", "none_ms", "tb_per_s", "plain_ms", "plain_silu_ms", "bound_ms",
+            "bound_by", "library_ms", "library_ratio", "call_ms", "library_call_ms", "host_us", "shapes")},
+        **{op: {entry: n[op] for entry, n in sass["group_norm"].items()} for op in ("ldg128", "stg128")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,8 +12,10 @@ Normalisation keeps the JAX module's arithmetic:
 - :func:`group_norm` sums its statistics in float32, but a bf16 input's
   squares are formed in bf16 before the sum (``group_norm_mxu``); the
   per-channel ``w``/``b`` are folded in float32 and cast to the input dtype,
-  so ``y = x·w + b`` rounds in that dtype. GroupNorm eps is 1e-5, 1e-6 in
-  front of a :class:`SpatialTransformer`.
+  so ``y = x·w + b`` rounds in that dtype; the resnet blocks' SiLU and the
+  UNet's last one are its epilogue (``ops/group_norm.py``: one kernel on
+  the card in a forward that records no graph). GroupNorm eps is 1e-5,
+  1e-6 in front of a :class:`SpatialTransformer`.
 - :func:`layer_norm` computes in float32 (flax ``LayerNorm(dtype=float32)``,
   variance ``E[x²] − E[x]²`` clipped at 0), then applies the :class:`LayerNorm`
   module's fp32 affine or the DiT's AdaLN modulation, and returns the
@@ -34,6 +36,8 @@ from torch import nn
 from ..utils import profiling
 
 from ..ops.attention import attention
+from ..ops.flash_attention import _records_graph
+from ..ops.group_norm import GROUP_NORM, group_norm_reference
 from ..ops.layer_norm import LAYER_NORM, check_epilogue, layer_norm_reference
 from ..parallel.collectives import copy_to_group, gather_from_group, reduce_from_group
 
@@ -169,32 +173,38 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(t_emb)))
 
 
-def group_norm(
-    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, num_groups: int, eps: float
-) -> torch.Tensor:
-    """GroupNorm over the channels of a ``[N, ..., C]`` tensor, in ``group_norm_mxu``'s arithmetic.
+def _takes_kernel(x: torch.Tensor, *params: Optional[torch.Tensor]) -> bool:
+    """True where a norm launches its kernel: a CUDA ``x`` in a forward that records no autograd graph.
 
-    The span ``norm.group`` (``utils/profiling.py``).
+    No graph: ``torch.is_grad_enabled()`` false, or none of ``x`` and
+    ``params`` requires grad. Every other call takes the plain chain.
     """
-    n, c = x.shape[0], x.shape[-1]
+    return x.is_cuda and not _records_graph(x, *params)
+
+
+def group_norm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, num_groups: int, eps: float,
+    silu: bool = False,
+) -> torch.Tensor:
+    """GroupNorm over the channels of a ``[N, ..., C]`` tensor in ``group_norm_mxu``'s arithmetic, then SiLU if ``silu``.
+
+    The span ``norm.group`` (``utils/profiling.py``), the SiLU inside it.
+    Routed as :func:`layer_norm` routes (:func:`_takes_kernel`): the kernel
+    of ``ops/group_norm.py``, which has no backward and raises on what it
+    cannot take, or the plain chain, op for op, and ``F.silu`` after it.
+    Each call adds 1 to the counter ``norm.group.kernel`` or
+    ``norm.group.plain``.
+    """
+    c = x.shape[-1]
     if c % num_groups:
         raise ValueError(f"groups {num_groups} must divide channels {c}")
+    kw = dict(num_groups=num_groups, eps=eps, silu=silu)
     with profiling.span("norm.group"):
-        cg = c // num_groups
-        xg = x.reshape(n, -1, num_groups, cg)
-        count = xg.shape[1] * cg
-        # squares in x.dtype (bf16 rounds them), sums in float32
-        s_g = xg.sum(dim=(1, 3), dtype=torch.float32)
-        ss_g = (xg * xg).sum(dim=(1, 3), dtype=torch.float32)
-        mean = s_g / count
-        var = torch.clamp(ss_g / count - mean * mean, min=0.0)
-        inv = torch.rsqrt(var + eps)
-        mean_c = mean.repeat_interleave(cg, dim=1)  # [n, c]
-        inv_c = inv.repeat_interleave(cg, dim=1)
-        w = (inv_c * scale[None, :]).to(x.dtype)
-        b = (bias[None, :] - mean_c * inv_c * scale[None, :]).to(x.dtype)
-        y = x.reshape(n, -1, c) * w[:, None, :] + b[:, None, :]
-        return y.reshape(x.shape)
+        if _takes_kernel(x, scale, bias):
+            profiling.count("norm.group.kernel")
+            return GROUP_NORM(x, scale, bias, **kw)
+        profiling.count("norm.group.plain")
+        return group_norm_reference(x, scale, bias, **kw)
 
 
 class GroupNorm(nn.Module):
@@ -206,8 +216,8 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps)
+    def forward(self, x: torch.Tensor, *, silu: bool = False) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps, silu=silu)
 
 
 def layer_norm(
@@ -221,19 +231,14 @@ def layer_norm(
     DiT's AdaLN modulation ``y·(1 + scale) + shift`` after the cast, in
     ``dtype``. Neither: ``y`` cast.
 
-    A CUDA tensor in a forward that records no autograd graph
-    (``torch.is_grad_enabled()`` false, or no input requires grad) takes the
-    kernel of ``ops/layer_norm.py``, which has no backward; every other call
-    the plain chain. Each call adds 1 to the counter ``norm.layer.kernel``
-    or ``norm.layer.plain``.
+    Where :func:`_takes_kernel`, the kernel of ``ops/layer_norm.py``, which
+    has no backward; every other call the plain chain. Each call adds 1 to
+    the counter ``norm.layer.kernel`` or ``norm.layer.plain``.
     """
     check_epilogue(weight, bias, shift, scale)
     kw = dict(weight=weight, bias=bias, shift=shift, scale=scale, dtype=dtype)
     with profiling.span("norm.layer"):
-        tensors = (x, weight, bias, shift, scale)
-        if x.is_cuda and not (
-            torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
-        ):
+        if _takes_kernel(x, weight, bias, shift, scale):
             profiling.count("norm.layer.kernel")
             return LAYER_NORM(x, eps, **kw)
         profiling.count("norm.layer.plain")
@@ -289,9 +294,9 @@ class ResnetBlock2D(nn.Module):
         self.shortcut = Dense(in_ch, out_ch, dtype) if in_ch != out_ch else None
 
     def _gn_silu(self, x, norm: GroupNorm, lo: int, hi: int, groups: int):
-        return F.silu(group_norm(
-            x, norm.weight[lo:hi], norm.bias[lo:hi], num_groups=groups, eps=norm.eps
-        ))
+        return group_norm(
+            x, norm.weight[lo:hi], norm.bias[lo:hi], num_groups=groups, eps=norm.eps, silu=True
+        )
 
     def forward(
         self, x: torch.Tensor, temb: torch.Tensor, skip: Optional[torch.Tensor] = None,
@@ -315,9 +320,9 @@ class ResnetBlock2D(nn.Module):
             h = conv_nhwc(hx.to(self.dtype), w1[:, :xc], self.conv1.bias, padding=1)
             h = h + conv_nhwc(hs.to(self.dtype), w1[:, xc:], None, padding=1)
         h = h + self.time_emb(F.silu(temb))[:, None, None, :]
-        h = F.silu(group_norm(
-            h, self.norm2.weight, self.norm2.bias, num_groups=self.groups, eps=self.norm2.eps
-        ))
+        h = group_norm(
+            h, self.norm2.weight, self.norm2.bias, num_groups=self.groups, eps=self.norm2.eps, silu=True
+        )
         if self.dropout > 0.0 and not deterministic:
             h = F.dropout(h, self.dropout, training=True)
         h = self.conv2(h)

@@ -40,7 +40,6 @@ import dataclasses
 from typing import Optional, Sequence, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -294,7 +293,7 @@ class UNetCondition2D(nn.Module):
         if skips:
             raise RuntimeError("skip-connection bookkeeping mismatch")
 
-        h = F.silu(self.conv_norm_out(h))
+        h = self.conv_norm_out(h, silu=True)
         return self.conv_out(h).to(torch.float32)
 
 

@@ -79,8 +79,9 @@ _DIMS = (32, 64, 128)
 _FWD_ONLY_DIMS = (72,)
 
 
-def _records_graph(*tensors: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+def _records_graph(*tensors: "torch.Tensor | None") -> bool:
+    """True if autograd records a graph through any of ``tensors`` (None entries aside)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
