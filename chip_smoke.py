@@ -626,15 +626,17 @@ def gn_entry_name(text):
     return f"{name} {_LN_TYPES[dtype]}{chunks} acc={values[-1]}"
 
 
-def sass_counts(fa, kernel):
+def sass_counts(kernel):
     """``{entry: {"hgmma": n, "utmaldg": n}}`` over ``kernel``'s library (``cuobjdump -sass``).
 
     ``wgmma`` assembles to ``HGMMA`` and a TMA tile load to ``UTMALDG``.
     """
-    tool = os.path.join(os.path.dirname(fa._nvcc()), "cuobjdump")
+    from diffusion_classifier_tpu_torch.utils import native
+
+    tool = os.path.join(os.path.dirname(native.find("nvcc")), "cuobjdump")
     check(os.path.isfile(tool), f"no cuobjdump beside nvcc: {tool}")
     sass = subprocess.run(
-        [tool, "-sass", kernel.library_path()], capture_output=True, text=True, check=True,
+        [tool, "-sass", kernel.path()], capture_output=True, text=True, check=True,
         timeout=300,
     ).stdout
     counts, entry = {}, None
@@ -651,8 +653,9 @@ def sass_counts(fa, kernel):
 def phase_build(fa):
     from diffusion_classifier_tpu_torch.ops import group_norm as gn
     from diffusion_classifier_tpu_torch.ops import layer_norm as ln
+    from diffusion_classifier_tpu_torch.utils import native
 
-    seconds = fa.build_all(fa.FLASH_FWD, fa.FLASH_BWD, ln.LAYER_NORM, gn.GROUP_NORM)
+    seconds = native.build_all(fa.FLASH_FWD, fa.FLASH_BWD, ln.LAYER_NORM, gn.GROUP_NORM)
     print(f"[2 build] flash_attn_fwd, flash_attn_bwd, layer_norm and group_norm built and loaded in {seconds:.2f} s")
     sass = {}
     for kernel in (fa.FLASH_FWD, fa.FLASH_BWD, ln.LAYER_NORM, gn.GROUP_NORM):
@@ -670,7 +673,7 @@ def phase_build(fa):
                 regs = re.search(r"Used (\d+) registers", line).group(1)
                 ptxas[entry] = f"{regs} registers, {spill} bytes spilled"
                 entry = None
-        counts = sass_counts(fa, kernel)
+        counts = sass_counts(kernel)
         for entry, ops in counts.items():
             print(f"[2 build]   {entry}: {ptxas.get(entry, 'built earlier')}, "
                   + ", ".join(f"{n} {op.upper()}" for op, n in ops.items()))

@@ -66,7 +66,7 @@
 // - Strided q/k/v: one 4-D tensor map per operand over (D, H, S, B) with the
 //   view's byte strides (encode_bshd), so the thirds of the DiT's fused qkv
 //   projection load without a copy; TMA needs a 16-byte aligned base and
-//   16-byte multiple strides, the wrapper's `_aligned16` rule.
+//   16-byte multiple strides, the wrapper's `_mappable` rule.
 // - Swizzle against D: a box is at most 64 bf16 wide (the 128-byte
 //   swizzle's limit), so a D = 128 tile is two boxes and a D = 32 tile takes
 //   the 64-byte swizzle; the `wgmma` descriptors use the same mode and

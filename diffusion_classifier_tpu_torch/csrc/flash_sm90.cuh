@@ -414,7 +414,7 @@ inline int bind_context() { return static_cast<int>(cudaFree(nullptr)); }
 // descriptors read: box_cols 64 (the default above D = 32) takes 128 B, 32
 // (the default at D = 32) 64 B, 16 (Tile72's second box) 32 B. The base must
 // be 16-byte aligned and every stride a multiple of 16 bytes (the wrapper's
-// `_aligned16`); the stride of a dimension of size 1 is never used and is
+// `_mappable`); the stride of a dimension of size 1 is never used and is
 // given as a contiguous layout would have it. Returns 0 or kEncodeError + the
 // CUresult.
 inline int encode_bshd(CUtensorMap* map, const void* ptr, int batch, int seq, int heads,

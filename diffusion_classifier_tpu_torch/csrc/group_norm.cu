@@ -380,7 +380,7 @@ cudaError_t launch(const Params& p, unsigned blocks, int chunks, cudaStream_t st
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16 (ops/flash_attention.py's _DTYPE_CODES).
+// dtype codes: 0 float32, 1 bfloat16 (ops/kernel.py's DTYPE_CODES).
 // x is [samples, hw, channels] at element strides (x_sn, x_sr, 1); out is
 // contiguous, of x's type; scale and bias fp32 [channels]. A block takes `width`
 // channels of one sample (a multiple of group_size and of 16 / sizeof

@@ -297,7 +297,7 @@ cudaError_t launch(const Params& p, bool vectorized, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16 (ops/flash_attention.py's _DTYPE_CODES).
+// dtype codes: 0 float32, 1 bfloat16 (ops/kernel.py's DTYPE_CODES).
 // x is [rows / seq, seq, dim] at element strides (x_sb, x_ss, 1); out is
 // contiguous [rows, dim]. `vectorized`: dim and x's strides are multiples of
 // 16 / sizeof(x) elements and every operand's base is 16-byte aligned (the

@@ -9,7 +9,7 @@ Same structure and the same numerics conventions as the flax module:
 - LayerNorm has no affine, eps 1e-5, and computes in float32 with flax's
   variance ``E[x²] − E[x]²`` (clipped at 0), then casts to the compute dtype;
   the AdaLN modulation ``h·(1 + scale) + shift`` follows in that dtype, in
-  the same call (``layers.layer_norm``).
+  the same call (``ops/layer_norm.py::layer_norm``).
 - In bf16 the residual stream and the position table stay bf16; the output
   is cast to float32.
 - ``qkv`` is split into three contiguous thirds, each viewed as
@@ -36,7 +36,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
-from .layers import Dense, TimestepEmbedding, layer_norm, lecun_normal_, sinusoidal_embedding
+from ..ops.layer_norm import layer_norm
+from .layers import Dense, TimestepEmbedding, lecun_normal_, sinusoidal_embedding
 
 __all__ = ["DiT", "DiTBlock", "DiTConfig", "get_2d_sincos_pos_embed"]
 

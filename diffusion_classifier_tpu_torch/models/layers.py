@@ -7,21 +7,21 @@ places its casts elsewhere. Images stay NHWC between modules; a conv views
 its input as NCHW (``permute``, channels-last strides, no copy) for
 ``F.conv2d`` and views the result back.
 
-Normalisation keeps the JAX module's arithmetic:
+Normalisation keeps the JAX module's arithmetic, through ``ops/`` as
+attention does:
 
-- :func:`group_norm` sums its statistics in float32, but a bf16 input's
-  squares are formed in bf16 before the sum (``group_norm_mxu``); the
-  per-channel ``w``/``b`` are folded in float32 and cast to the input dtype,
-  so ``y = x·w + b`` rounds in that dtype; the resnet blocks' SiLU and the
-  UNet's last one are its epilogue (``ops/group_norm.py``: one kernel on
-  the card in a forward that records no graph). GroupNorm eps is 1e-5,
+- ``ops/group_norm.py::group_norm`` sums its statistics in float32, but a
+  bf16 input's squares are formed in bf16 before the sum
+  (``group_norm_mxu``); the per-channel ``w``/``b`` are folded in float32
+  and cast to the input dtype, so ``y = x·w + b`` rounds in that dtype; the
+  resnet blocks' SiLU and the UNet's last one are its epilogue (one kernel
+  on the card in a forward that records no graph). GroupNorm eps is 1e-5,
   1e-6 in front of a :class:`SpatialTransformer`.
-- :func:`layer_norm` computes in float32 (flax ``LayerNorm(dtype=float32)``,
-  variance ``E[x²] − E[x]²`` clipped at 0), then applies the :class:`LayerNorm`
-  module's fp32 affine or the DiT's AdaLN modulation, and returns the
-  caller's compute dtype, so no fp32 intermediate leaves the call
-  (``ops/layer_norm.py``: one kernel on the card in a forward that records
-  no graph).
+- ``ops/layer_norm.py::layer_norm`` computes in float32 (flax
+  ``LayerNorm(dtype=float32)``, variance ``E[x²] − E[x]²`` clipped at 0),
+  then applies the :class:`LayerNorm` module's fp32 affine or the DiT's
+  AdaLN modulation, and returns the caller's compute dtype, so no fp32
+  intermediate leaves the call (one kernel on the card likewise).
 """
 
 from __future__ import annotations
@@ -33,12 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils import profiling
-
 from ..ops.attention import attention
-from ..ops.flash_attention import _records_graph
-from ..ops.group_norm import GROUP_NORM, group_norm_reference
-from ..ops.layer_norm import LAYER_NORM, check_epilogue, layer_norm_reference
+from ..ops.group_norm import group_norm
+from ..ops.layer_norm import layer_norm
 from ..parallel.collectives import copy_to_group, gather_from_group, reduce_from_group
 
 __all__ = [
@@ -55,8 +52,6 @@ __all__ = [
     "SpatialTransformer",
     "TimestepEmbedding",
     "Upsample2D",
-    "group_norm",
-    "layer_norm",
     "lecun_normal_",
     "reset_parameters",
     "sinusoidal_embedding",
@@ -173,40 +168,6 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(t_emb)))
 
 
-def _takes_kernel(x: torch.Tensor, *params: Optional[torch.Tensor]) -> bool:
-    """True where a norm launches its kernel: a CUDA ``x`` in a forward that records no autograd graph.
-
-    No graph: ``torch.is_grad_enabled()`` false, or none of ``x`` and
-    ``params`` requires grad. Every other call takes the plain chain.
-    """
-    return x.is_cuda and not _records_graph(x, *params)
-
-
-def group_norm(
-    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, num_groups: int, eps: float,
-    silu: bool = False,
-) -> torch.Tensor:
-    """GroupNorm over the channels of a ``[N, ..., C]`` tensor in ``group_norm_mxu``'s arithmetic, then SiLU if ``silu``.
-
-    The span ``norm.group`` (``utils/profiling.py``), the SiLU inside it.
-    Routed as :func:`layer_norm` routes (:func:`_takes_kernel`): the kernel
-    of ``ops/group_norm.py``, which has no backward and raises on what it
-    cannot take, or the plain chain, op for op, and ``F.silu`` after it.
-    Each call adds 1 to the counter ``norm.group.kernel`` or
-    ``norm.group.plain``.
-    """
-    c = x.shape[-1]
-    if c % num_groups:
-        raise ValueError(f"groups {num_groups} must divide channels {c}")
-    kw = dict(num_groups=num_groups, eps=eps, silu=silu)
-    with profiling.span("norm.group"):
-        if _takes_kernel(x, scale, bias):
-            profiling.count("norm.group.kernel")
-            return GROUP_NORM(x, scale, bias, **kw)
-        profiling.count("norm.group.plain")
-        return group_norm_reference(x, scale, bias, **kw)
-
-
 class GroupNorm(nn.Module):
     """:func:`group_norm` with float32 ``weight`` (flax ``scale``) and ``bias`` (``GroupNormF32``)."""
 
@@ -218,31 +179,6 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, *, silu: bool = False) -> torch.Tensor:
         return group_norm(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps, silu=silu)
-
-
-def layer_norm(
-    x: torch.Tensor, eps: float, *, weight=None, bias=None, shift=None, scale=None,
-    dtype: torch.dtype = torch.float32,
-) -> torch.Tensor:
-    """flax ``LayerNorm(dtype=float32)`` over the last dim, then an epilogue; ``dtype`` out; the span ``norm.layer``.
-
-    ``weight``/``bias`` (fp32 ``[D]``): ``y·w + b`` in float32, then cast.
-    ``shift``/``scale`` (``[B, D]`` in ``dtype``, for ``x [B, S, D]``): the
-    DiT's AdaLN modulation ``y·(1 + scale) + shift`` after the cast, in
-    ``dtype``. Neither: ``y`` cast.
-
-    Where :func:`_takes_kernel`, the kernel of ``ops/layer_norm.py``, which
-    has no backward; every other call the plain chain. Each call adds 1 to
-    the counter ``norm.layer.kernel`` or ``norm.layer.plain``.
-    """
-    check_epilogue(weight, bias, shift, scale)
-    kw = dict(weight=weight, bias=bias, shift=shift, scale=scale, dtype=dtype)
-    with profiling.span("norm.layer"):
-        if _takes_kernel(x, weight, bias, shift, scale):
-            profiling.count("norm.layer.kernel")
-            return LAYER_NORM(x, eps, **kw)
-        profiling.count("norm.layer.plain")
-        return layer_norm_reference(x, eps, **kw)
 
 
 class LayerNorm(nn.Module):

@@ -28,32 +28,25 @@ on scalar-FMA kernels (the sources say more).
   CUDA tensors, the plain versions on CPU tensors. :func:`flash_attention`
   goes through it. A CUDA tensor launches the kernel or raises; nothing
   falls back.
-- ``FLASH_FWD`` / ``FLASH_BWD`` — the kernel objects: each built at first use
-  with ``nvcc`` (``-gencode arch=compute_90a,code=sm_90a``) into
-  ``build/torch_kernels/<source hash>/``, loaded with ``ctypes``; each
-  ``launches`` counts its wrapper's launches, and ``copies`` the bf16 inputs
-  it had to copy because they failed :func:`_aligned16`. :func:`build_all`
-  compiles both at once.
+- ``FLASH_FWD`` / ``FLASH_BWD`` — the kernel objects (``kernel.CudaKernel``):
+  each ``launches`` counts its wrapper's launches, and ``copies`` the bf16
+  inputs it had to copy because no TMA tensor map can read them
+  (:func:`_mappable`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import torch
+
+from .kernel import DTYPE_CODES, CudaKernel, aligned16, records_graph
 
 __all__ = [
     "FLASH_BWD",
     "FLASH_FWD",
     "FlashAttention",
-    "build_all",
     "flash_attention",
     "flash_attention_bwd_reference",
     "flash_attention_reference",
@@ -61,27 +54,11 @@ __all__ = [
 ]
 
 _LOG2_E = 1.4426950408889634
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# a C entry point's return at or above this is a tensor-map encode that
-# failed: this plus its CUresult (``kEncodeError`` in csrc/flash_sm90.cuh)
-_ENCODE_ERROR = 100000
-
 
 #: head dims with a forward and a backward entry, in both dtypes
 _DIMS = (32, 64, 128)
 #: head dims with a bf16 forward entry alone (DiT-XL/2's 72, padded to 80 inside the kernel)
 _FWD_ONLY_DIMS = (72,)
-
-
-def _records_graph(*tensors: "torch.Tensor | None") -> bool:
-    """True if autograd records a graph through any of ``tensors`` (None entries aside)."""
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -100,31 +77,24 @@ def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
         return False
     d = q.shape[-1]
     if d in _FWD_ONLY_DIMS:
-        return q.dtype == torch.bfloat16 and not _records_graph(q, k, v)
+        return q.dtype == torch.bfloat16 and not records_graph(q, k, v)
     return d in _DIMS
 
 
-def _aligned16(x: torch.Tensor) -> bool:
+def _mappable(x: torch.Tensor) -> bool:
     """True if the bf16 kernels can read ``x`` through a TMA tensor map.
 
-    The base address and every batch, sequence and head stride (in bytes)
-    must be multiples of 16, and those strides nonzero (a broadcast view has
-    no tensor map); the stride of a dimension of size 1 is never used. The
+    :func:`~.kernel.aligned16` over the batch, sequence and head strides,
+    and those strides nonzero (a broadcast view has no tensor map). The
     q/k/v thirds of the DiT's fused qkv projection pass.
     """
-    if x.data_ptr() % 16:
-        return False
-    return all(
-        size == 1 or (stride != 0 and (stride * x.element_size()) % 16 == 0)
-        for size, stride in zip(x.shape[:3], x.stride()[:3])
-    )
+    strides = x.stride()[:3]
+    return aligned16(x, 3) and (0 not in strides or all(n == 1 for n, st in zip(x.shape, strides) if not st))
 
 
-def _launch_error(name: str, code: int) -> str:
-    """The message for a C entry point's nonzero return: a launch's ``cudaError_t`` or an encode's ``CUresult``."""
-    if code >= _ENCODE_ERROR:
-        return f"{name}: cuTensorMapEncodeTiled failed with CUresult {code - _ENCODE_ERROR}"
-    return f"{name} launch failed: cudaError {code}"
+def _mapped(kernel: CudaKernel, *tensors: torch.Tensor) -> list:
+    """The inputs, each bf16 one that fails :func:`_mappable` copied (and counted in ``kernel.copies``)."""
+    return [kernel.copy(x) if x.dtype == torch.bfloat16 and not _mappable(x) else x for x in tensors]
 
 
 def flash_attention_reference(
@@ -191,124 +161,11 @@ def flash_attention_bwd_reference(
     )
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in (
-        os.path.join(home, "bin", "nvcc") if home else None,
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
-        "flash-attention kernels are built from source at first use"
-    )
-
-
-class CudaKernel:
-    """One ``csrc/<name>.cu``: built at first use into a ``ctypes`` library, launches counted."""
-
-    def __init__(self, name: str, argtypes: list):
-        self.name = name
-        self.source = os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-        self.launches = 0
-        self.copies = 0
-        self.build_log = ""
-        self._argtypes = argtypes
-        self._lib = None
-
-    def library_path(self) -> str:
-        """``build/torch_kernels/<hash>/lib<name>.so``, hashed over the source, the headers and the flags."""
-        digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-        csrc = os.path.dirname(self.source)
-        headers = sorted(n for n in os.listdir(csrc) if n.endswith(".cuh"))
-        for path in (self.source, *(os.path.join(csrc, n) for n in headers)):
-            with open(path, "rb") as f:
-                digest.update(f.read())
-        return os.path.join(BUILD_ROOT, digest.hexdigest()[:16], f"lib{self.name}.so")
-
-    def _aligned(self, *tensors: torch.Tensor) -> list:
-        """The inputs, each bf16 one that fails :func:`_aligned16` copied (and counted)."""
-        out = []
-        for x in tensors:
-            if x.dtype == torch.bfloat16 and not _aligned16(x):
-                x = torch.empty_like(x, memory_format=torch.contiguous_format).copy_(x)
-                self.copies += 1
-            out.append(x)
-        return out
-
-    def _compile(self):
-        """Start ``nvcc`` unless this source is built; returns ``(process, tmp_path)`` or None."""
-        if self._lib is not None:
-            return None
-        path = self.library_path()
-        if os.path.isfile(path):
-            return None
-        nvcc = _nvcc()
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
-        os.close(fd)
-        proc = subprocess.Popen(
-            [nvcc, *_NVCC_FLAGS, "-o", tmp, self.source],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        return proc, tmp
-
-    def _finish(self, job) -> None:
-        """Wait for ``job`` (from :meth:`_compile`), then load the library."""
-        if job is not None:
-            proc, tmp = job
-            self.build_log, _ = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {self.source} ({proc.returncode}):\n{self.build_log}"
-                )
-            os.replace(tmp, self.library_path())  # atomic: a concurrent build wins or loses whole
-        if self._lib is None:
-            lib = ctypes.CDLL(self.library_path())
-            fn = getattr(lib, self.name)
-            fn.argtypes = self._argtypes
-            fn.restype = ctypes.c_int
-            self._lib = lib
-
-    def build(self) -> float:
-        """Compile (unless a build of this source exists) and load; returns seconds spent."""
-        return 0.0 if self._lib is not None else build_all(self)
-
-    def _launch(self, *args) -> None:
-        err = getattr(self._lib, self.name)(*args)
-        if err != 0:
-            raise RuntimeError(_launch_error(self.name, err))
-        self.launches += 1
-
-
-def build_all(*kernels: CudaKernel) -> float:
-    """Build the kernels with one ``nvcc`` each, all started together; returns seconds spent."""
-    start = time.perf_counter()
-    jobs = []
-    try:
-        for kernel in kernels:
-            jobs.append(kernel._compile())
-        for kernel, job in zip(kernels, jobs):
-            kernel._finish(job)
-    finally:  # after a failure, stop the other compilers and drop their partial files
-        for job in jobs:
-            if job is not None:
-                proc, tmp = job
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-    return time.perf_counter() - start
-
-
 def _check_inputs(tensors: dict, ref: torch.Tensor) -> None:
     for name, x in tensors.items():
         if x.device.type != "cuda" or x.device != ref.device:
             raise ValueError(f"{name} must be on q's CUDA device, got {x.device}")
-        if x.dtype != ref.dtype or x.dtype not in _DTYPE_CODES:
+        if x.dtype != ref.dtype or x.dtype not in DTYPE_CODES:
             raise ValueError(
                 f"{name} dtype {x.dtype}: the tensors must share float32 or bfloat16"
             )
@@ -339,21 +196,19 @@ class FlashAttentionForward(CudaKernel):
                 f"v{tuple(v.shape)}: need equal [B, S, H, D] with D in 32/64/128, "
                 "or 72 in bf16 without a graph"
             )
-        self.build()
-        q, k, v = self._aligned(q, k, v)
+        q, k, v = _mapped(self, q, k, v)
         b, s, h, d = q.shape
         out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
         stats = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if lse else None
-        with torch.cuda.device(q.device):
-            self._launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                stats.data_ptr() if lse else None,
-                _DTYPE_CODES[q.dtype], b, s, h, d,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *out.stride()[:3],
-                (1.0 / math.sqrt(d)) * _LOG2_E,
-                torch.cuda.current_stream().cuda_stream,
-            )
+        self.launch(
+            q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            stats.data_ptr() if lse else None,
+            DTYPE_CODES[q.dtype], b, s, h, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3],
+            (1.0 / math.sqrt(d)) * _LOG2_E,
+        )
         return (out, stats) if lse else out
 
 
@@ -384,21 +239,19 @@ class FlashAttentionBackward(CudaKernel):
                 f"lse must be a contiguous float32 [{b}, {h}, {s}] on {q.device}, got "
                 f"{lse.dtype} {tuple(lse.shape)} on {lse.device}"
             )
-        self.build()
-        q, k, v, o, do = self._aligned(q, k, v, o, do)
+        q, k, v, o, do = _mapped(self, q, k, v, o, do)
         grads = [torch.empty_like(x, memory_format=torch.contiguous_format) for x in (q, k, v)]
         delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         strides = (ctypes.c_int64 * 24)(
             *(st for x in (q, k, v, o, do, *grads) for st in x.stride()[:3])
         )
-        with torch.cuda.device(q.device):
-            self._launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), *(g.data_ptr() for g in grads),
-                _DTYPE_CODES[q.dtype], b, s, h, d, strides,
-                1.0 / math.sqrt(d), (1.0 / math.sqrt(d)) * _LOG2_E,
-                torch.cuda.current_stream().cuda_stream,
-            )
+        self.launch(
+            q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(g.data_ptr() for g in grads),
+            DTYPE_CODES[q.dtype], b, s, h, d, strides,
+            1.0 / math.sqrt(d), (1.0 / math.sqrt(d)) * _LOG2_E,
+        )
         return tuple(grads)
 
 

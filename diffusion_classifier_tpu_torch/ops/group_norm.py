@@ -15,22 +15,21 @@ in ``x.dtype`` (bf16 rounds them); ``var = max(E[x²] − mean², 0)``,
 in ``x.dtype``; then, with ``silu``, ``F.silu(y)`` (the kernel's quotient
 to 2 fp32 ulps, ATen's exact).
 
-- :func:`group_norm_reference` — the plain PyTorch chain, op for op. CPU
-  tensors and forwards that record a graph take it; the kernel is held to
-  it on the card.
-- ``GROUP_NORM`` — the kernel object (``flash_attention.CudaKernel``: built
-  at first use with ``nvcc`` into ``build/torch_kernels/<source hash>/``,
-  ``launches`` counted; ``copies`` counts inputs it had to copy: an ``x``
-  that cannot be viewed as ``[N, HW, C]`` rows of contiguous channels at
-  16-byte aligned strides).
+- :func:`group_norm` — every GroupNorm of the port (the resnet blocks' norms
+  and the UNet's last pass ``silu=True``): the span ``norm.group``, then
+  the kernel where ``kernel.takes_kernel`` (a CUDA tensor in a forward that
+  records no autograd graph; the kernel has no backward and raises on what
+  it cannot take: fp16, or rows that are no whole 16-byte chunks), the
+  plain chain and ``F.silu`` for every other call, so training keeps its
+  arithmetic, gradients and launches. Each call adds 1 to
+  ``norm.group.kernel`` or ``norm.group.plain``.
+- :func:`group_norm_reference` — the plain PyTorch chain, op for op. The
+  kernel is held to it on the card.
+- ``GROUP_NORM`` — the kernel object (``kernel.CudaKernel``; ``copies``
+  counts inputs it had to copy: an ``x`` that cannot be viewed as
+  ``[N, HW, C]`` rows of contiguous channels at 16-byte aligned strides).
 - :func:`tiling` — the kernel's tile for a shape: the channels a block takes
   and the chunks a thread holds.
-
-``models/layers.py::group_norm`` chooses between them: the kernel, which
-has no backward, for every CUDA tensor in a forward that records no
-autograd graph (it raises on what it cannot take: fp16, or rows that are
-no whole 16-byte chunks); the plain chain for every other call, so
-training keeps its arithmetic, gradients and launches.
 """
 
 from __future__ import annotations
@@ -43,10 +42,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import CudaKernel, _DTYPE_CODES
-from .layer_norm import _multiple
+from ..utils import profiling
+from . import kernel
+from .kernel import DTYPE_CODES, CudaKernel, aligned16, check_vectors
 
-__all__ = ["GROUP_NORM", "GroupNormKernel", "group_norm_reference", "tiling"]
+__all__ = ["GROUP_NORM", "GroupNormKernel", "group_norm", "group_norm_reference", "tiling"]
 
 _THREADS = 256  # a block's threads (kThreads in csrc/group_norm.cu)
 _CHUNKS = (2, 4, 8, 16)  # chunks a thread can hold (the kernel's instantiations)
@@ -60,6 +60,8 @@ def group_norm_reference(
 ) -> torch.Tensor:
     """GroupNorm over the channels of ``[N, ..., C]`` in ``group_norm_mxu``'s arithmetic, then ``F.silu`` if ``silu``."""
     n, c = x.shape[0], x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"groups {num_groups} must divide channels {c}")
     cg = c // num_groups
     xg = x.reshape(n, -1, num_groups, cg)
     count = xg.shape[1] * cg
@@ -135,18 +137,13 @@ class GroupNormKernel(CudaKernel):
         n, c = x.shape[0], x.shape[-1]
         if c % num_groups:
             raise ValueError(f"groups {num_groups} must divide channels {c}")
-        if x.dtype not in _DTYPE_CODES:
+        if x.dtype not in DTYPE_CODES:
             raise ValueError(f"x {x.dtype}: the kernel takes float32 or bfloat16")
         vec = 16 // x.element_size()
         if c % vec:
             raise ValueError(f"channels {c}: the kernel takes rows of 16-byte chunks ({vec} {x.dtype})")
         device = x.device
-        for name, t in (("scale", scale), ("bias", bias)):
-            if t.device != device or t.dtype != torch.float32 or t.shape != (c,) or not t.is_contiguous():
-                raise ValueError(
-                    f"{name} must be a contiguous float32 [{c}] on {device}, got "
-                    f"{t.dtype} {tuple(t.shape)} on {t.device}"
-                )
+        check_vectors(device, c, scale=scale, bias=bias)
         if device.type != "cuda":
             raise ValueError(f"x must be a CUDA tensor, got {device}")
         out = torch.empty(x.shape, dtype=x.dtype, device=device)
@@ -156,23 +153,34 @@ class GroupNormKernel(CudaKernel):
             rows = x.view(n, -1, c)
         except RuntimeError:
             rows = None
-        if rows is None or (c > 1 and rows.stride(-1) != 1) or not _multiple(rows, 2, vec) or rows.data_ptr() % 16:
-            self.copies += 1
-            rows = torch.empty_like(x, memory_format=torch.contiguous_format).copy_(x).view(n, -1, c)
+        if rows is None or (c > 1 and rows.stride(-1) != 1) or not aligned16(rows, 2):
+            rows = self.copy(x).view(n, -1, c)
         hw = rows.shape[1]
         tile = tiling(hw, c, c // num_groups, x.element_size())
         if tile is None:
             raise ValueError(f"no tile of [{hw}, {c}] in {num_groups} groups fits a block")
-        self.build()
         strides = [0 if size == 1 else stride for size, stride in zip(rows.shape[:2], rows.stride()[:2])]
-        args = (rows.data_ptr(), out.data_ptr(), scale.data_ptr(), bias.data_ptr(), n, hw, c, *strides,
-                c // num_groups, *tile, _DTYPE_CODES[x.dtype], int(silu), eps)
-        if device.index == torch.cuda.current_device():  # the usual case: no device switch
-            self._launch(*args, torch.cuda.current_stream().cuda_stream)
-        else:
-            with torch.cuda.device(device):
-                self._launch(*args, torch.cuda.current_stream().cuda_stream)
+        self.launch(device, rows.data_ptr(), out.data_ptr(), scale.data_ptr(), bias.data_ptr(), n, hw, c,
+                    *strides, c // num_groups, *tile, DTYPE_CODES[x.dtype], int(silu), eps)
         return out
 
 
 GROUP_NORM = GroupNormKernel()
+
+
+def group_norm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, num_groups: int, eps: float,
+    silu: bool = False,
+) -> torch.Tensor:
+    """GroupNorm over the channels of a ``[N, ..., C]`` tensor in ``group_norm_mxu``'s arithmetic, then SiLU if ``silu``.
+
+    The span ``norm.group``, the SiLU inside it: ``GROUP_NORM`` where
+    ``kernel.takes_kernel``, :func:`group_norm_reference` otherwise.
+    """
+    kw = dict(num_groups=num_groups, eps=eps, silu=silu)
+    with profiling.span("norm.group"):
+        if kernel.takes_kernel(x, scale, bias):
+            profiling.count("norm.group.kernel")
+            return GROUP_NORM(x, scale, bias, **kw)
+        profiling.count("norm.group.plain")
+        return group_norm_reference(x, scale, bias, **kw)

@@ -17,19 +17,19 @@ Arithmetic (flax's, as the port computed it before the kernel): fp32
   ``x [B, S, D]``; the DiT) — ``r = y`` in ``dtype``, then
   ``r·(1 + scale) + shift``, each step rounded to ``dtype``.
 
-- :func:`layer_norm_reference` — the plain PyTorch chain, op for op. CPU
-  tensors and forwards that record a graph take it; the kernel is held to
-  it on the card.
-- ``LAYER_NORM`` — the kernel object (``flash_attention.CudaKernel``: built
-  at first use with ``nvcc`` into ``build/torch_kernels/<source hash>/``,
-  ``launches`` counted; ``copies`` counts inputs it had to copy: an ``x``
-  not contiguous in its last dimension, or not viewable as rows, and scale
-  and shift rows of different strides).
-
-``models/layers.py::layer_norm`` chooses between them: the kernel, which
-has no backward, for a CUDA tensor in a forward that records no autograd
-graph; the plain chain for every other call, so training keeps its
-arithmetic, gradients and launches.
+- :func:`layer_norm` — every LayerNorm of the port (the ``LayerNorm``
+  module's affine, the DiT's AdaLN modulation): the span ``norm.layer``,
+  then the kernel where ``kernel.takes_kernel`` (a CUDA tensor in a
+  forward that records no autograd graph; the kernel has no backward), the
+  plain chain for every other call, so training keeps its arithmetic,
+  gradients and launches. Each call adds 1 to ``norm.layer.kernel`` or
+  ``norm.layer.plain``.
+- :func:`layer_norm_reference` — the plain PyTorch chain, op for op. The
+  kernel is held to it on the card.
+- ``LAYER_NORM`` — the kernel object (``kernel.CudaKernel``; ``copies``
+  counts inputs it had to copy: an ``x`` not contiguous in its last
+  dimension, or not viewable as rows, and scale and shift rows of
+  different strides).
 """
 
 from __future__ import annotations
@@ -38,9 +38,11 @@ import ctypes
 
 import torch
 
-from .flash_attention import CudaKernel, _DTYPE_CODES
+from ..utils import profiling
+from . import kernel
+from .kernel import DTYPE_CODES, CudaKernel, aligned16, check_vectors
 
-__all__ = ["LAYER_NORM", "LayerNormKernel", "check_epilogue", "layer_norm_reference"]
+__all__ = ["LAYER_NORM", "LayerNormKernel", "check_epilogue", "layer_norm", "layer_norm_reference"]
 
 _NONE, _AFFINE, _ADALN = 0, 1, 2
 
@@ -50,6 +52,7 @@ def layer_norm_reference(
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """LayerNorm over the last dim in fp32, then the affine or AdaLN epilogue, out in ``dtype``."""
+    check_epilogue(weight, bias, shift, scale)
     xf = x.to(torch.float32)
     mean = xf.mean(dim=-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
@@ -71,11 +74,6 @@ def check_epilogue(weight, bias, shift, scale) -> int:
     return _AFFINE if weight is not None else _ADALN if scale is not None else _NONE
 
 
-def _multiple(t: torch.Tensor, dims: int, n: int) -> bool:
-    """True if the strides of ``t``'s first ``dims`` dimensions are multiples of ``n`` (size-1 dims aside)."""
-    return all(size == 1 or stride % n == 0 for size, stride in zip(t.shape[:dims], t.stride()[:dims]))
-
-
 class LayerNormKernel(CudaKernel):
     """The kernel: ``x`` fp32 or bf16 ``[..., D]`` → ``dtype`` (fp32 or bf16), contiguous, ``x``'s shape."""
 
@@ -86,10 +84,6 @@ class LayerNormKernel(CudaKernel):
             + [ctypes.c_float, ctypes.c_void_p],
         )
 
-    def _copy(self, x: torch.Tensor) -> torch.Tensor:
-        self.copies += 1
-        return x.contiguous()
-
     def __call__(
         self, x: torch.Tensor, eps: float, *, weight=None, bias=None, shift=None, scale=None,
         dtype: torch.dtype = torch.float32,
@@ -99,21 +93,16 @@ class LayerNormKernel(CudaKernel):
         device = x.device
         if device.type != "cuda":
             raise ValueError(f"x must be a CUDA tensor, got {device}")
-        if x.dtype not in _DTYPE_CODES or dtype not in _DTYPE_CODES:
+        if x.dtype not in DTYPE_CODES or dtype not in DTYPE_CODES:
             raise ValueError(f"x {x.dtype} → {dtype}: the kernel takes float32 or bfloat16 to either")
         if x.ndim == 0:
             raise ValueError("x needs a last dimension to normalise")
         shape, d = x.shape, x.shape[-1]
         if x.stride(-1) != 1 and d > 1:
-            x = self._copy(x)
+            x = self.copy(x)
         operands, p_sb = (None, None), 0
         if epilogue == _AFFINE:
-            for name, t in (("weight", weight), ("bias", bias)):
-                if t.device != device or t.dtype != torch.float32 or t.shape != (d,) or not t.is_contiguous():
-                    raise ValueError(
-                        f"{name} must be a contiguous float32 [{d}] on {device}, got "
-                        f"{t.dtype} {tuple(t.shape)} on {t.device}"
-                    )
+            check_vectors(device, d, weight=weight, bias=bias)
             operands = (weight, bias)
         elif epilogue == _ADALN:
             if x.ndim != 3:
@@ -125,13 +114,13 @@ class LayerNormKernel(CudaKernel):
                         f"{t.dtype} {tuple(t.shape)} on {t.device}"
                     )
             if scale.stride() != shift.stride() or scale.stride(-1) != 1:
-                shift, scale = self._copy(shift), self._copy(scale)
+                shift, scale = (t if t.is_contiguous() else self.copy(t) for t in (shift, scale))
             operands, p_sb = (scale, shift), scale.stride(0) if scale.shape[0] > 1 else 0
         if x.ndim != 3:  # rows [1, N, D]: a view where the leading dims merge
             try:
                 x = x.view(1, -1, d)
             except RuntimeError:
-                x = self._copy(x).view(1, -1, d)
+                x = self.copy(x).view(1, -1, d)
         b, s, _ = x.shape
         out = torch.empty(shape, dtype=dtype, device=device)
         if out.numel() == 0:
@@ -140,18 +129,33 @@ class LayerNormKernel(CudaKernel):
         # 16-byte chunks: the width, x's strides and every base aligned to them
         vec = 16 // x.element_size()
         vectorized = (
-            d % vec == 0 and _multiple(x, 2, vec) and p_sb % vec == 0
+            d % vec == 0 and aligned16(x, 2) and p_sb % vec == 0
             and all(ptr % 16 == 0 for ptr in ptrs if ptr is not None)
         )
-        self.build()
-        args = (*ptrs, b * s, s, d, *x.stride()[:2], p_sb,
-                _DTYPE_CODES[x.dtype], _DTYPE_CODES[dtype], epilogue, int(vectorized), eps)
-        if device.index == torch.cuda.current_device():  # the usual case: no device switch
-            self._launch(*args, torch.cuda.current_stream().cuda_stream)
-        else:
-            with torch.cuda.device(device):
-                self._launch(*args, torch.cuda.current_stream().cuda_stream)
+        self.launch(device, *ptrs, b * s, s, d, *x.stride()[:2], p_sb,
+                    DTYPE_CODES[x.dtype], DTYPE_CODES[dtype], epilogue, int(vectorized), eps)
         return out
 
 
 LAYER_NORM = LayerNormKernel()
+
+
+def layer_norm(
+    x: torch.Tensor, eps: float, *, weight=None, bias=None, shift=None, scale=None,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=float32)`` over the last dim, then an epilogue; ``dtype`` out; the span ``norm.layer``.
+
+    ``weight``/``bias`` (fp32 ``[D]``): ``y·w + b`` in float32, then cast.
+    ``shift``/``scale`` (``[B, D]`` in ``dtype``, for ``x [B, S, D]``): the
+    DiT's AdaLN modulation ``y·(1 + scale) + shift`` after the cast, in
+    ``dtype``. Neither: ``y`` cast. ``LAYER_NORM`` where
+    ``kernel.takes_kernel``, :func:`layer_norm_reference` otherwise.
+    """
+    kw = dict(weight=weight, bias=bias, shift=shift, scale=scale, dtype=dtype)
+    with profiling.span("norm.layer"):
+        if kernel.takes_kernel(x, weight, bias, shift, scale):
+            profiling.count("norm.layer.kernel")
+            return LAYER_NORM(x, eps, **kw)
+        profiling.count("norm.layer.plain")
+        return layer_norm_reference(x, eps, **kw)

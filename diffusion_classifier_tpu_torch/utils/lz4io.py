@@ -28,14 +28,14 @@ __all__ = ["decompress", "library_path", "load_npy_lz4", "native_available", "op
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCE = os.path.join(_REPO, "native", "lz4dec.cpp")
-_LIBRARY = "liblz4dec.so"
+_LIBRARY = native.Library(SOURCE, "lz4dec")
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
 def library_path() -> str:
     """Where this source, built with these flags, lives: a new source or flag builds anew."""
-    return native.library_path(SOURCE, _LIBRARY)
+    return _LIBRARY.path()
 
 
 def _load() -> ctypes.CDLL:
@@ -43,7 +43,7 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        lib = native.load(SOURCE, _LIBRARY)
+        lib = _LIBRARY.load()
         lib.lz4_frame_decompress.restype = ctypes.c_int
         lib.lz4_frame_decompress.argtypes = [
             ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,

@@ -30,7 +30,7 @@
 
 The JAX module's ``enable_compilation_cache`` has no counterpart: there is
 no XLA program to compile, and the CUDA kernels are built once and cached by
-the hash of their sources under ``build/`` (``ops/flash_attention.py``).
+the hash of their sources under ``build/`` (``utils/native.py``).
 """
 
 from __future__ import annotations

@@ -34,7 +34,7 @@ __all__ = ["crc32c", "decompress", "decompress_into", "library_path"]
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCE = os.path.join(_REPO, "diffusion_classifier_tpu_torch", "csrc", "zstd_dec.cpp")
-_LIBRARY = "libzstddec.so"
+_LIBRARY = native.Library(SOURCE, "zstddec")
 _DST_TOO_SMALL = -2
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -42,7 +42,7 @@ _lock = threading.Lock()
 
 def library_path() -> str:
     """Where this source, built with these flags, lives: a new source or flag builds anew."""
-    return native.library_path(SOURCE, _LIBRARY)
+    return _LIBRARY.path()
 
 
 def _load() -> ctypes.CDLL:
@@ -50,7 +50,7 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        lib = native.load(SOURCE, _LIBRARY)
+        lib = _LIBRARY.load()
         lib.zstd_decompress.restype = ctypes.c_int
         lib.zstd_decompress.argtypes = [
             ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t,

@@ -214,7 +214,7 @@ def test_unaligned_bf16_view_is_copied_not_refused(cuda):
     flat = torch.randn(b * s * h * d + 1, generator=cuda, device="cuda").to(torch.bfloat16)
     q = flat[1:].view(b, s, h, d)  # 2 bytes past a 16-byte boundary
     k, v = _strided_qkv((b, s, h, d), torch.bfloat16, cuda)[1:]
-    assert not fa._aligned16(q) and fa._aligned16(k) and fa._aligned16(v)
+    assert not fa._mappable(q) and fa._mappable(k) and fa._mappable(v)
     do = torch.randn(q.shape, generator=cuda, device="cuda").to(q.dtype)
     before = fa.FLASH_FWD.copies, fa.FLASH_BWD.copies
     out, lse = fa.FLASH_FWD(q, k, v, lse=True)

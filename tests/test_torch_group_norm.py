@@ -1,6 +1,6 @@
 """The fused GroupNorm (``ops/group_norm.py``): its dispatch and tiling on the CPU, its kernel on the card.
 
-CPU tests: ``group_norm_reference``, ``layers.group_norm`` and
+CPU tests: ``group_norm_reference``, ``ops/group_norm.py::group_norm`` and
 ``ResnetBlock2D`` give the same bits, forward and gradients, as the op
 chain they ran before the norm took its SiLU epilogue (written out here as
 it was); CPU tensors and forwards that record a graph take the plain
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from diffusion_classifier_tpu_torch.models import layers
 from diffusion_classifier_tpu_torch.ops import group_norm as gn
+from diffusion_classifier_tpu_torch.ops import kernel
 from diffusion_classifier_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -111,7 +112,7 @@ def test_group_norm_equals_the_old_chain_on_cpu(shape, groups, dtype, silu):
     scale = (torch.randn(c, generator=g) * 0.3 + 1).requires_grad_()
     bias = torch.randn(c, generator=g).requires_grad_()
     outs, grads = [], []
-    for fn in (layers.group_norm, gn.group_norm_reference,
+    for fn in (gn.group_norm, gn.group_norm_reference,
                lambda *a, silu, **k: (F.silu if silu else (lambda t: t))(_old_group_norm(*a, **k))):
         out = fn(x, scale, bias, num_groups=groups, eps=1e-5, silu=silu)
         grads.append(torch.autograd.grad(out.float().square().sum(), (x, scale, bias)))
@@ -120,7 +121,7 @@ def test_group_norm_equals_the_old_chain_on_cpu(shape, groups, dtype, silu):
     assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[2])
     assert all(torch.equal(a, b) for a, b in zip(grads[0], grads[2]))
     with torch.no_grad():  # no graph recorded: a CPU tensor still takes the plain chain
-        assert torch.equal(layers.group_norm(x, scale, bias, num_groups=groups, eps=1e-5, silu=silu), outs[2])
+        assert torch.equal(gn.group_norm(x, scale, bias, num_groups=groups, eps=1e-5, silu=silu), outs[2])
     assert profiling.counters() == {"norm.group.plain": 2}
     assert gn.GROUP_NORM.launches == 0
 
@@ -163,7 +164,7 @@ class _StandIn:
 
 def test_dispatch_takes_the_kernel_only_where_no_graph_is_recorded(monkeypatch):
     stand_in = _StandIn()
-    monkeypatch.setattr(layers, "GROUP_NORM", stand_in)
+    monkeypatch.setattr(gn, "GROUP_NORM", stand_in)
     block = layers.ResnetBlock2D(32, 16, 12, groups=4)
     _randomise(block, 3)
     g = torch.Generator().manual_seed(4)
@@ -174,7 +175,7 @@ def test_dispatch_takes_the_kernel_only_where_no_graph_is_recorded(monkeypatch):
     assert stand_in.calls == [] and profiling.counters() == {"norm.group.plain": 3}
     profiling.reset_counters()
     # the route as on the card, the device test set aside: the kernel wherever no graph is recorded
-    monkeypatch.setattr(layers, "_takes_kernel", lambda x, *params: not layers._records_graph(x, *params))
+    monkeypatch.setattr(kernel, "takes_kernel", lambda x, *params: not kernel.records_graph(x, *params))
     slow = block(x, temb, skip)  # the parameters require grad: a graph is recorded
     assert stand_in.calls == [] and profiling.counters() == {"norm.group.plain": 3}
     with torch.no_grad():
@@ -212,8 +213,8 @@ def test_the_wrapper_refuses_what_it_does_not_take():
         with pytest.raises(ValueError, match=message):
             gn.GROUP_NORM(kw.pop("x"), kw.pop("scale"), kw.pop("bias"), eps=1e-5, **kw)
     with pytest.raises(ValueError, match="must divide"):
-        layers.group_norm(x, scale, bias, num_groups=5, eps=1e-5)
-    assert not layers._takes_kernel(x, scale, bias)  # a CPU tensor
+        gn.group_norm(x, scale, bias, num_groups=5, eps=1e-5)
+    assert not kernel.takes_kernel(x, scale, bias)  # a CPU tensor
     assert gn.GROUP_NORM.launches == 0
 
 

@@ -1,6 +1,6 @@
 """The fused LayerNorm (``ops/layer_norm.py``): its dispatch on the CPU, its kernel on the card.
 
-CPU tests: ``layers.layer_norm``, ``DiTBlock``, ``DiT`` and
+CPU tests: ``ops/layer_norm.py::layer_norm``, ``DiTBlock``, ``DiT`` and
 ``BasicTransformerBlock`` give the same bits, forward and gradients, as the
 op chain they ran before the norm took its epilogue (a LayerNorm in float32,
 the cast, then the AdaLN modulation or the affine, written out here as it
@@ -106,13 +106,13 @@ def test_layer_norm_epilogues_equal_the_old_chain_on_cpu(dtype):
     x = (torch.randn(3, 5, 24, generator=g) * 3 + 1).to(dtype)
     shift, scale = (torch.randn(3, 24, generator=g).to(dtype) for _ in range(2))
     w, b = torch.randn(24, generator=g), torch.randn(24, generator=g)
-    assert torch.equal(layers.layer_norm(x, EPS), _old_layer_norm(x, EPS))
+    assert torch.equal(ln.layer_norm(x, EPS), _old_layer_norm(x, EPS))
     assert torch.equal(
-        layers.layer_norm(x, EPS, shift=shift, scale=scale, dtype=dtype),
+        ln.layer_norm(x, EPS, shift=shift, scale=scale, dtype=dtype),
         _old_modulate(_old_layer_norm(x, EPS).to(dtype), shift, scale),
     )
     assert torch.equal(
-        layers.layer_norm(x, EPS, weight=w, bias=b, dtype=dtype),
+        ln.layer_norm(x, EPS, weight=w, bias=b, dtype=dtype),
         (_old_layer_norm(x, EPS) * w + b).to(dtype),
     )
     assert profiling.counters() == {"norm.layer.plain": 3}
@@ -191,7 +191,7 @@ def test_the_wrapper_refuses_cpu_tensors_and_unpaired_epilogues():
     with pytest.raises(ValueError, match="CUDA"):
         ln.LAYER_NORM(x, EPS)
     with pytest.raises(ValueError, match="pairs"):
-        layers.layer_norm(x, EPS, weight=torch.ones(8))
+        ln.layer_norm(x, EPS, weight=torch.ones(8))
     with pytest.raises(ValueError, match="one epilogue"):
         ln.LAYER_NORM(x, EPS, weight=torch.ones(8), bias=torch.zeros(8),
                       shift=torch.zeros(2, 8), scale=torch.zeros(2, 8))
@@ -342,7 +342,7 @@ def test_no_grad_forwards_take_the_kernel_and_autograd_the_plain_chain(cuda):
     scale = torch.randn((2, 384), generator=cuda, device="cuda").requires_grad_()
     shift = torch.randn((2, 384), generator=cuda, device="cuda").requires_grad_()
     grads = []
-    for fn in (layers.layer_norm, ln.layer_norm_reference):
+    for fn in (ln.layer_norm, ln.layer_norm_reference):
         out = fn(xg, EPS, shift=shift, scale=scale)
         grads.append(torch.autograd.grad(out.square().sum(), (xg, shift, scale)))
     assert all(torch.equal(a, b) for a, b in zip(*grads))

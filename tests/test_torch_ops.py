@@ -7,10 +7,6 @@ The dispatcher's route outside the kernels' gate (and ``"xla"``),
 ``dot_product_attention``, is held to ``jax.nn.dot_product_attention``.
 """
 
-import os
-import subprocess
-import sys
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -222,69 +218,3 @@ def test_scale_after_product_is_within_the_kernel_tolerance(dtype, tol):
     torch.testing.assert_close(out, want, **tol)
     for name, g, w in zip(("dq", "dk", "dv"), grads, fa.flash_attention_bwd_reference(q, k, v, do, want)):
         torch.testing.assert_close(g, w, **tol, msg=lambda m: f"{name}: {m}")
-
-
-def test_aligned16_passes_the_qkv_thirds_and_fails_an_offset_view():
-    b, s, h, d = 2, 16, 2, 64
-    qkv = torch.zeros((b, s, 3 * h * d), dtype=torch.bfloat16)
-    assert all(fa._aligned16(x.view(b, s, h, d)) for x in qkv.split(h * d, dim=-1))
-    assert not fa._aligned16(qkv[..., 1 : 1 + h * d].view(b, s, h, d))  # 2 bytes off
-    assert not fa._aligned16(qkv[:, :, : h * d - 8].unflatten(-1, (h, d - 4)))  # head stride 60
-    assert fa._aligned16(qkv[:1, :1, : h * d].reshape(1, 1, h, d))
-
-
-def test_aligned16_refuses_a_broadcast_view_which_has_no_tensor_map():
-    # a stride of 0 is a multiple of 16, but TMA maps need real strides
-    b, s, h, d = 2, 16, 2, 64
-    k = torch.zeros((b, 1, h, d), dtype=torch.bfloat16)
-    assert fa._aligned16(k) and not fa._aligned16(k.expand(b, s, h, d))
-    kernel = fa.CudaKernel("flash_attn_fwd", [])
-    (out,) = kernel._aligned(k.expand(b, s, h, d))
-    assert kernel.copies == 1 and fa._aligned16(out) and out.stride()[1] == h * d
-
-
-def test_launch_error_tells_an_encode_from_a_launch():
-    encode = fa._launch_error("flash_attn_fwd", fa._ENCODE_ERROR + 1)  # CUDA_ERROR_INVALID_VALUE
-    assert encode == "flash_attn_fwd: cuTensorMapEncodeTiled failed with CUresult 1"
-    assert fa._launch_error("flash_attn_bwd", 9) == "flash_attn_bwd launch failed: cudaError 9"
-
-
-def test_library_path_hashes_the_shared_header(tmp_path):
-    kernel = fa.CudaKernel("flash_attn_fwd", [])
-    kernel.source = str(tmp_path / "flash_attn_fwd.cu")
-    (tmp_path / "flash_attn_fwd.cu").write_text("// kernel\n")
-    (tmp_path / "flash_sm90.cuh").write_text("// helpers\n")
-    first = kernel.library_path()
-    assert first == kernel.library_path() and first.endswith("libflash_attn_fwd.so")
-    (tmp_path / "flash_sm90.cuh").write_text("// helpers, edited\n")
-    assert kernel.library_path() != first  # an edited header rebuilds
-
-
-def test_wrapper_copies_and_counts_only_unaligned_bf16_inputs():
-    kernel = fa.CudaKernel("flash_attn_fwd", [])
-    b, s, h, d = 2, 16, 2, 64
-    qkv = torch.randn((b, s, 3 * h * d + 1)).to(torch.bfloat16)
-    third = qkv[..., : h * d].view(b, s, h, d)  # row stride 385: unaligned
-    aligned = torch.zeros((b, s, h, d), dtype=torch.bfloat16)
-    fp32 = third.float()[:, :, :, 1:]  # fp32 never takes the aligned path
-    out = kernel._aligned(third, aligned, fp32)
-    assert kernel.copies == 1
-    assert out[0] is not third and fa._aligned16(out[0]) and torch.equal(out[0], third)
-    assert out[1] is aligned and out[2] is fp32
-
-
-def test_kernel_module_imports_without_nvcc():
-    code = (
-        "import os, sys; os.environ['PATH'] = ''; os.environ.pop('CUDA_HOME', None); "
-        "import diffusion_classifier_tpu_torch.ops.flash_attention as m; "
-        "assert m.FLASH_FWD._lib is None and m.FLASH_FWD.launches == 0; "
-        "assert m.FLASH_BWD._lib is None and m.FLASH_BWD.launches == 0; "
-        "assert m.FLASH_FWD.copies == 0 and m.FLASH_BWD.copies == 0; "
-        "assert 'jax' not in sys.modules"
-    )
-    proc = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
-        cwd=os.path.dirname(os.path.dirname(os.path.dirname(fa.__file__))),
-    )
-    assert proc.returncode == 0, proc.stderr
-

@@ -29,6 +29,7 @@ from diffusion_classifier_tpu_torch.engine.denoiser import Denoiser, supports_pr
 from diffusion_classifier_tpu_torch.models import layers as tl
 from diffusion_classifier_tpu_torch.models.encoders import ClassEmbedder
 from diffusion_classifier_tpu_torch.models.unet import UNetCondition2D, UNetConfig
+from diffusion_classifier_tpu_torch.ops.group_norm import group_norm
 from diffusion_classifier_tpu_torch.utils.convert import flax_to_state_dict
 
 torch.set_num_threads(1)
@@ -70,7 +71,7 @@ def test_group_norm_matches_jax(dtype):
     scale = (1 + 0.1 * rng.standard_normal(32)).astype(np.float32)
     bias = (0.1 * rng.standard_normal(32)).astype(np.float32)
     want = jl.group_norm_mxu(jnp.asarray(x, jdt), scale, bias, num_groups=8, eps=1e-5)
-    got = tl.group_norm(_t(x).to(tdt), _t(scale), _t(bias), num_groups=8, eps=1e-5)
+    got = group_norm(_t(x).to(tdt), _t(scale), _t(bias), num_groups=8, eps=1e-5)
     assert got.dtype == tdt
     want, got = np.asarray(want, np.float32), got.float().numpy()
     if dtype == "fp32":

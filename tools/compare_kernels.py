@@ -80,13 +80,14 @@ def main(other_dir):
         return 2
     sys.path.insert(0, REPO)
     from diffusion_classifier_tpu_torch.ops import flash_attention as fa
+    from diffusion_classifier_tpu_torch.utils import native
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     other_fwd, other_bwd = fa.FlashAttentionForward(), fa.FlashAttentionBackward()
     other_fwd.source = os.path.join(os.path.abspath(other_dir), "flash_attn_fwd.cu")
     other_bwd.source = os.path.join(os.path.abspath(other_dir), "flash_attn_bwd.cu")
-    fa.build_all(fa.FLASH_FWD, fa.FLASH_BWD, other_fwd, other_bwd)
+    native.build_all(fa.FLASH_FWD, fa.FLASH_BWD, other_fwd, other_bwd)
     builds = {"this": (fa.FLASH_FWD, fa.FLASH_BWD), "other": (other_fwd, other_bwd)}
     gen = torch.Generator(device="cuda").manual_seed(0)
     record = []
