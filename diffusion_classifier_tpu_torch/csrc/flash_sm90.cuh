@@ -405,8 +405,14 @@ inline EncodeTiled encode_tiled() {
 // libcuda's calls want a current context, which a thread that has made no
 // runtime call yet lacks: PyTorch runs a backward on a thread of its own,
 // whose first CUDA work may be this library's. cudaFree(nullptr) makes the
-// device's primary context current and does nothing else.
-inline int bind_context() { return static_cast<int>(cudaFree(nullptr)); }
+// device's primary context current and does nothing else. Once a thread:
+// the context stays current, and cudaFree may not be called while the
+// thread captures a CUDA graph (a captured step's first steps run eagerly).
+inline int bind_context() {
+  thread_local int bound = -1;
+  if (bound != 0) bound = static_cast<int>(cudaFree(nullptr));
+  return bound;
+}
 
 // Encode a map over the view [batch, seq, heads, dim] (element strides `st`,
 // last dim contiguous) as the 4-D tensor (dim, heads, seq, batch) with byte

@@ -16,6 +16,14 @@ clip_grad_norm_`` adds 1e-6), and optax evaluates the schedule at the
 pre-increment count, so the first step's learning rate is 0 under warmup.
 The updates run as ``torch._foreach_*`` ops on the parameters in place, with
 no host synchronisation: the clip factor stays on the device.
+:meth:`Optimizer.update` computes the step's learning rate and bias
+corrections on the host (:meth:`Optimizer.hyper`) and hands them to
+:meth:`Optimizer.apply` as Python floats; a captured CUDA graph hands
+``apply`` the same float32 values as 0-dim device tensors, which it fills
+before each replay. Both give the same bits: on a CUDA device
+``torch._foreach_div`` by a Python float multiplies by the float's float32
+reciprocal, so there the tensors hold the corrections' reciprocals
+(``hyper(count, reciprocal=True)``) and ``apply`` multiplies by them.
 
 Under several processes the optimizer and the EMA act on each rank's local
 pieces (``parallel.sharding.Placement.local``): whole replicas under DDP,
@@ -158,11 +166,38 @@ class Optimizer:
             [torch.zeros_like(p, dtype=self.state_dtype) for p in params] for _ in range(2)
         ))
 
+    def hyper(self, count: int, *, reciprocal: bool = False) -> tuple[float, float, float]:
+        """``(lr, 1 − β₁ᵗ, 1 − β₂ᵗ)`` of the update taken at pre-increment ``count`` (t = count + 1), float32 values.
+
+        ``reciprocal``: the corrections' float32 reciprocals instead, what a
+        CUDA device multiplies by where :meth:`apply` divides by a float.
+        """
+        f = np.float32
+        t = f(count + 1)
+        bc1, bc2 = f(1.0) - f(self.b1) ** t, f(1.0) - f(self.b2) ** t
+        if reciprocal:
+            bc1, bc2 = f(1.0) / bc1, f(1.0) / bc2
+        return self.schedule(count), float(bc1), float(bc2)
+
     @torch.no_grad()
     def update(self, grads, state: AdamState, params, *, global_norm: Optional[Callable] = None) -> None:
-        """Clip ``grads``, step Adam and apply the update to ``params``, all in place.
+        """Clip ``grads``, step Adam and apply the update to ``params``, all in place; advances ``state.count``.
 
         ``global_norm(grads)`` gives ‖g‖ when ``grads`` are shards (None: they are whole).
+        """
+        lr, bc1, bc2 = self.hyper(state.count)
+        state.count += 1
+        self.apply(grads, state, params, lr, bc1, bc2, global_norm=global_norm)
+
+    @torch.no_grad()
+    def apply(self, grads, state: AdamState, params, lr, bc1, bc2, *,
+              global_norm: Optional[Callable] = None) -> None:
+        """The clip and Adam's step at learning rate ``lr`` and bias corrections ``bc1``, ``bc2``; leaves ``state.count``.
+
+        The three are Python floats, or 0-dim float32 tensors on the
+        parameters' device (what a captured graph reads at each replay); on
+        a CUDA device the tensors ``bc1``, ``bc2`` are the corrections'
+        reciprocals (``hyper(count, reciprocal=True)``).
         """
         grads, params = list(grads), list(params)
         # clip: g / ‖g‖ · max where ‖g‖ ≥ max, untouched below (no epsilon)
@@ -174,11 +209,9 @@ class Optimizer:
         torch._foreach_mul_(
             grads, torch.where(below, torch.ones_like(norm), torch.full_like(norm, self.max_grad_norm))
         )
-        lr = self.schedule(state.count)
-        state.count += 1
-        f = np.float32
-        bc1 = float(f(1.0) - f(self.b1) ** f(state.count))
-        bc2 = float(f(1.0) - f(self.b2) ** f(state.count))
+        div, div_ = torch._foreach_div, torch._foreach_div_
+        if isinstance(bc1, torch.Tensor) and bc1.is_cuda:  # a float's division there
+            div, div_ = torch._foreach_mul, torch._foreach_mul_
         mu, nu = state.mu, state.nu
         compressed = self.state_dtype != torch.float32
         if compressed:  # the moments in fp32 for the update
@@ -193,10 +226,10 @@ class Optimizer:
             torch._foreach_copy_(state.mu, mu)
             torch._foreach_copy_(state.nu, nu)
             denom, step = nu, mu
-            torch._foreach_div_(denom, bc2)
-            torch._foreach_div_(step, bc1)
+            div_(denom, bc2)
+            div_(step, bc1)
         else:
-            denom, step = torch._foreach_div(nu, bc2), torch._foreach_div(mu, bc1)
+            denom, step = div(nu, bc2), div(mu, bc1)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(step, denom)

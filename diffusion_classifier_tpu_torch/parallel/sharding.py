@@ -247,6 +247,11 @@ class Placement:
                 weights.append(distinct / world)
             self._norm_weights = weights
 
+    @property
+    def single(self) -> bool:
+        """True where the module is one whole copy on one data rank: no DDP wrapper, FSDP shards or TP slices."""
+        return self._ddp is None and not self.fsdp and not self.tp_slices and self.data_count == 1
+
     def wrap_for_training(self) -> None:
         """Wrap a data-parallel module in DDP over the data group (once; FSDP and one process need none)."""
         if self.mesh is None or self.fsdp or self._ddp is not None:
